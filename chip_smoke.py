@@ -4,31 +4,50 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. device    requires CUDA; prints the card and its power limit
-2. build     builds the Hopper kernels with nvcc (sm_90a), prints seconds
-3. kernels   holds each kernel against its plain PyTorch version on the
-             card: the sweeps of tests/test_kernels.py plus the main-path
-             shapes, in float32 (atol 2e-5) and bfloat16 (atol 3e-2);
-             fused pool writes must be exact
-4. model     lm_prefill_paged / lm_decode_paged / lm_mixed_paged of
-             llama3.2-1b .reduced() in float32, same weights, on the card
-             (kernels) and on the CPU (plain versions): logits and
-             non-scratch pages within 1e-4, next tokens equal
-5. serve     TorchBackend with llama3.2-1b at full width in bf16 under
-             Engine(scheduler="mixed", policy "mars") with real sleep tools:
-             8 sessions in two shared-prefix families, 3 rounds; then the
-             same with every tool yield forced to OFFLOAD. Kernel launch
-             counters are zeroed just before and read just after.
-6. timing    each kernel, its plain version and one PyTorch library call
-             on the same main-path inputs (CUDA events, warmed), and the
-             bound from bytes and operations
-7. profile   device time by kernel over one full-width mixed iteration
+1. device       requires CUDA; prints the card and its power limit
+2. build        builds the Hopper kernels with nvcc (sm_90a), prints seconds
+3. kernels      holds each kernel against its plain PyTorch version on the
+                card: the sweeps of tests/test_kernels.py plus the
+                main-path shapes, in float32 (atol 2e-5) and bfloat16
+                (atol 3e-2 paged; flash 2e-2 times the output's largest
+                magnitude, capped at 2e-2); fused pool writes must be
+                exact; flash rows that see no key are not compared
+4. model        llama3.2-1b .reduced(): lm_prefill_paged / lm_decode_paged /
+                lm_mixed_paged; gemma2-27b .reduced(): lm_forward, two
+                lm_step prefill chunks (the second ragged, past the window)
+                and lm_decode over slots at different positions. float32,
+                same weights, on the card (kernels) and on the CPU (plain
+                versions): logits and non-scratch cache within 1e-4, next
+                tokens equal
+5. serve        TorchBackend with llama3.2-1b at full width in bf16 (paged
+                layout) under Engine(scheduler="mixed", policy "mars") with
+                real sleep tools: 8 sessions in two shared-prefix families,
+                3 rounds; then the same with every tool yield forced to
+                OFFLOAD. Kernel launch counters are zeroed just before and
+                read just after.
+6. timing       each kernel, its plain version and one PyTorch library call
+                (SDPA; flex_attention, compiled, for the softcapped
+                flash_attention) on the same main-path inputs (CUDA events,
+                warmed), and the bound from bytes and operations
+7. profile      device time by kernel over one full-width mixed iteration
+8. serve-dense  TorchBackend with gemma2-27b at full width in bf16 (dense
+                slot layout, 4 slots of 6,144 tokens), same engine: 4
+                sessions (two 4,608-token prompts, past the 4,096 window;
+                two of 1,024), 3 rounds; then the same with every tool
+                yield forced to OFFLOAD (whole-slot swaps). Launch counters
+                zeroed after the backend is built (calibrate runs lm_step),
+                read after both runs: flash_attention must launch 46 times
+                per prefill call
+9. profile      device time by kernel over one full-width dense prefill
+                chunk (C = 512 at q_offset 4,096) and one dense decode step
+                over 4 slots
 
 The line before the last is the kernels JSON line; the last line is the
 device JSON line. TF32 is off throughout (float32 parity).
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -50,6 +69,7 @@ from repro_torch.engine.engine import Engine, EngineConfig, run_live  # noqa: E4
 from repro_torch.engine.tools import RealToolExecutor  # noqa: E402
 from repro_torch.engine.torch_runner import TorchBackend  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_fused)
 from repro_torch.kernels.paged_flash_attention import \
@@ -57,6 +77,7 @@ from repro_torch.kernels.paged_flash_attention import \
 from repro_torch.models import transformer as tf  # noqa: E402
 
 F32_TOL, BF16_TOL, MODEL_TOL = 2e-5, 3e-2, 1e-4
+FLASH_BF16_TOL = 2e-2            # tests/test_kernels.py's own for this kernel
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 KERNELS = {
@@ -72,8 +93,13 @@ KERNELS = {
         fn=paged_attention,
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:217"),
+    "flash_attention": dict(
+        fn=flash_attention,
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:116"),
 }
 MAIN_PATH = ("paged_attention_fused", "paged_flash_attention")
+DENSE_PATH = ("flash_attention",)
 DEV = torch.device("cuda")
 
 
@@ -99,6 +125,7 @@ class Errors:
         if not err <= tol:
             raise AssertionError(f"{name} {key[1]} {what}: max abs err "
                                  f"{err} > {tol}")
+        return err
 
     def exact(self, name, got, want, what):
         if not torch.equal(got, want):
@@ -216,6 +243,94 @@ def _check_shared_prefix_rows(dtype, gen):
         raise AssertionError("shared-prefix rows differ")
 
 
+def _seen_rows(Sq, Skv, *, causal=True, window=None, q_offset=0,
+               softcap=None):
+    """Rows that see at least one key (the rest are finite, not compared:
+    the TPU kernel gives them the mean of V, this one zero)."""
+    q_pos = q_offset + torch.arange(Sq, device=DEV)
+    lo = (q_pos - window + 1).clamp(min=0) if window else \
+        torch.zeros_like(q_pos)
+    hi = torch.minimum(q_pos, torch.tensor(Skv - 1, device=DEV)) if causal \
+        else torch.full_like(q_pos, Skv - 1)
+    return lo <= hi
+
+
+def _flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, *, model_layout=False):
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); with ``model_layout`` they
+    are the transposed views the dense path hands the kernel (a
+    (B, Sq, Hq, D) query and a (B, Skv, Hkv, D) cache slot)."""
+    if model_layout:
+        return (_randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2),
+                _randn(gen, (B, Skv, Hkv, D), dtype).transpose(1, 2),
+                _randn(gen, (B, Skv, Hkv, D), dtype).transpose(1, 2))
+    return (_randn(gen, (B, Hq, Sq, D), dtype),
+            _randn(gen, (B, Hkv, Skv, D), dtype),
+            _randn(gen, (B, Hkv, Skv, D), dtype))
+
+
+def _flash_tol(dtype, want):
+    """f32: 2e-5 absolute. bf16: 2e-2, the JAX test's own tolerance, but
+    relative to the output's scale: at the main-path chunk the outputs
+    (softmax averages over ~1,500 keys) are themselves about 2e-2, so an
+    absolute 2e-2 would pass an output that merely has their magnitude."""
+    if dtype == torch.float32:
+        return F32_TOL
+    return FLASH_BF16_TOL * min(1.0, want.float().abs().max().item())
+
+
+def _check_flash(errs, gen, dtype, B, Hq, Hkv, Sq, Skv, D, *,
+                 model_layout=False, **kw):
+    q, k, v = _flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype,
+                            model_layout=model_layout)
+    got = flash_attention(q, k, v, **kw)
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"flash_attention: non-finite output {kw}")
+    seen = _seen_rows(Sq, Skv, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)[:, :, seen]
+    tol = _flash_tol(dtype, want)
+    what = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {kw} tol={tol}"
+    err = errs.check("flash_attention", dtype, got[:, :, seen], want, tol,
+                     what)
+    return err, tol
+
+
+# (B, Hq, Hkv, Sq, Skv, D) of test_flash_attention_shapes, causal at
+# q_offset Skv - Sq
+FLASH_SHAPES = [(2, 4, 2, 128, 128, 64), (1, 8, 8, 256, 256, 64),
+                (1, 8, 2, 64, 192, 128), (2, 2, 1, 128, 128, 128)]
+# the dense path's chunk: Hq 32, Hkv 16, D 128, C 512 at q_offset 4,096
+# over a 6,144-token slot; window 4,096 (local layers) or none (global)
+GEMMA2_CHUNK = dict(B=1, Hq=32, Hkv=16, Sq=512, Skv=6144, D=128)
+GEMMA2_OFFSET, GEMMA2_WINDOW, GEMMA2_SOFTCAP = 4096, 4096, 50.0
+
+
+def _flash_sweeps(errs, gen, dtype):
+    for B, Hq, Hkv, Sq, Skv, D in FLASH_SHAPES:
+        _check_flash(errs, gen, dtype, B, Hq, Hkv, Sq, Skv, D,
+                     causal=True, q_offset=Skv - Sq)
+    # test_flash_attention_masking_variants
+    for window, softcap, causal in ((64, None, True), (None, 30.0, True),
+                                    (32, 50.0, True), (None, None, False)):
+        _check_flash(errs, gen, dtype, 1, 4, 2, 128, 128, 64,
+                     causal=causal, window=window, softcap=softcap)
+    # test_flash_attention_ragged_q
+    for Sq in (100, 65, 1):
+        _check_flash(errs, gen, dtype, 1, 4, 2, Sq, 128, 64,
+                     causal=True, q_offset=128 - Sq)
+    # a chunk whose padded rows run past the cache's end, and gemma2's
+    # reduced shapes (D 32, window 64)
+    _check_flash(errs, gen, dtype, 1, 4, 2, 64, 100, 64,
+                 model_layout=True, q_offset=80, window=64, softcap=50.0)
+    _check_flash(errs, gen, dtype, 1, 4, 2, 32, 160, 32,
+                 model_layout=True, q_offset=84, window=64, softcap=50.0)
+    for window in (GEMMA2_WINDOW, None):
+        err, tol = _check_flash(errs, gen, dtype, *GEMMA2_CHUNK.values(),
+                                model_layout=True, q_offset=GEMMA2_OFFSET,
+                                window=window, softcap=GEMMA2_SOFTCAP)
+        log(f"[kernels] flash_attention {str(dtype)[6:]} main-path chunk, "
+            f"window {window}: max abs err {err:.3e} (tol {tol:.3e})")
+
+
 def phase_kernels() -> Errors:
     errs = Errors()
     gen = torch.Generator(device=DEV).manual_seed(7)
@@ -242,6 +357,7 @@ def phase_kernels() -> Errors:
             _check_prefill(errs, gen, dtype, tol, 1, 32, 8, 64, 32, 80, 66,
                            C, kv_len=[kv], table_ids=80)
         _check_shared_prefix_rows(dtype, gen)
+        _flash_sweeps(errs, gen, dtype)
     torch.cuda.synchronize()
     for (name, dt), err in sorted(errs.max.items()):
         log(f"[kernels] {name:22s} {dt:9s} max_abs_err={err:.3e}")
@@ -341,6 +457,76 @@ def phase_model() -> None:
         f"{worst:.3e} (tol {MODEL_TOL}); mixed next tokens equal")
 
 
+def phase_model_dense() -> None:
+    """gemma2-27b .reduced() (window 64, softcaps, post norms, tied
+    embeddings) on the dense cache: card (flash kernel) vs CPU."""
+    cfg = get_config("gemma2-27b").reduced()
+    params = tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
+    dparams = _to_device(params)
+    rng = np.random.default_rng(4)
+    worst = 0.0
+
+    def agree(a, b, what):
+        nonlocal worst
+        err = (a.float().cpu() - b.float()).abs().max().item()
+        worst = max(worst, err)
+        if not err <= MODEL_TOL:
+            raise AssertionError(f"dense model {what}: max abs err {err}")
+
+    def same_next(a, b, what):
+        if torch.argmax(a, -1).tolist() != torch.argmax(b, -1).cpu().tolist():
+            raise AssertionError(f"dense model {what}: next tokens differ")
+
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 90))
+                            .astype(np.int32))
+    lc = tf.lm_forward(cfg, params, toks)
+    lg = tf.lm_forward(cfg, dparams, toks.to(DEV))
+    agree(lg, lc, "lm_forward logits")
+    same_next(lc[:, -1], lg[:, -1], "lm_forward")
+    Smax, slot = 160, 1
+    shp = (cfg.n_layers, 3, Smax, cfg.n_kv_heads, cfg.head_dim_)
+    k0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
+    v0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
+    cpu = tf.KVCache(k0.clone(), v0.clone())
+    gpu = tf.KVCache(k0.to(DEV), v0.to(DEV))
+
+    def caches(what):
+        agree(gpu.k[:, :, :Smax - 1], cpu.k[:, :, :Smax - 1], what + " k")
+        agree(gpu.v[:, :, :Smax - 1], cpu.v[:, :, :Smax - 1], what + " v")
+
+    def slot_of(c):
+        return tf.KVCache(c.k[:, slot:slot + 1], c.v[:, slot:slot + 1])
+
+    # two chunks into one slot; the second is ragged (20 real of 32, the
+    # padded lanes parked at Smax - 1) and past the 64-token window
+    nxt = 0
+    for start, n, lane in ((0, 64, 64), (64, 20, 32)):
+        t = np.zeros((1, lane), np.int32)
+        t[0, :n] = rng.integers(2, cfg.vocab_size, n)
+        t = torch.from_numpy(t)
+        lc, _ = tf.lm_step(cfg, params, slot_of(cpu), t, q_offset=start,
+                           n_real=n)
+        lg, _ = tf.lm_step(cfg, dparams, slot_of(gpu), t.to(DEV),
+                           q_offset=start, n_real=n)
+        agree(lg[:, :n], lc[:, :n], f"lm_step logits @{start}")
+        same_next(lc[0, n - 1], lg[0, n - 1], f"lm_step @{start}")
+        if not torch.isfinite(lg).all():
+            raise AssertionError("dense model: padded lanes not finite")
+        caches(f"lm_step @{start}")
+        nxt = int(torch.argmax(lc[0, n - 1]))
+    # decode: slot 0 at 100 (random cache as context), slot 1 continuing
+    # its prefill at 84, slot 2 idle at the scratch position
+    t = torch.tensor([7, nxt, 0], dtype=torch.int32)
+    pos = torch.tensor([100, 84, Smax - 1], dtype=torch.int32)
+    lc, _ = tf.lm_decode(cfg, params, cpu, t, pos)
+    lg, _ = tf.lm_decode(cfg, dparams, gpu, t.to(DEV), pos.to(DEV))
+    agree(lg[:2], lc[:2], "lm_decode logits")
+    same_next(lc[:2], lg[:2], "lm_decode")
+    caches("lm_decode")
+    log(f"[model] gemma2-27b reduced f32 (dense cache): card vs cpu max abs "
+        f"err {worst:.3e} (tol {MODEL_TOL}); next tokens equal")
+
+
 # ---------------------------------------------------------------------------
 # 5. serve at full width
 # ---------------------------------------------------------------------------
@@ -372,17 +558,16 @@ def _sessions(run: int):
     return out
 
 
-def _serve(backend, run: int, *, force_offload: bool):
+def _serve(backend, sessions, ecfg, *, force_offload: bool):
+    """One Engine run over ``sessions`` under MARS with real tools; checks
+    that every session finished with the right number of in-vocabulary
+    tokens and, under forced offload, that a host swap-out happened."""
     bus = EventBus()
     tools = RealToolExecutor(cpu_slots=4, bus=bus)
-    eng = Engine(EngineConfig(total_kv_blocks=SERVE["total_pages"],
-                              block_size=32, token_budget=512,
-                              max_decode_batch=8, cpu_slots=4,
-                              scheduler="mixed"),
-                 "mars", backend, bus=bus, tool_exec=tools)
+    eng = Engine(EngineConfig(**ecfg), "mars", backend, bus=bus,
+                 tool_exec=tools)
     if force_offload:
         eng.policy.on_tool_yield = lambda s, now: (KVAction.OFFLOAD, 0.0)
-    sessions = _sessions(run)
     try:
         t0 = time.monotonic()
         finished, horizon = run_live(eng, sessions, timeout=300)
@@ -407,10 +592,19 @@ def _serve(backend, run: int, *, force_offload: bool):
     log(f"[serve:{label}] finished {len(finished)}/{len(sessions)} in "
         f"{wall:.2f}s wall, prefix_hit_tokens={eng.prefix_hit_tokens}, "
         f"host swap-outs={len(outs)}, cow={eng.blocks.cow_count}")
-    if eng.prefix_hit_tokens <= 0:
-        raise AssertionError(f"serve[{label}]: no prefix hits")
     if force_offload and not outs:
         raise AssertionError("serve[offload]: no host SWAP_OUT")
+    return eng
+
+
+def _serve_paged(backend, run: int, *, force_offload: bool):
+    label = "offload" if force_offload else "mars"
+    eng = _serve(backend, _sessions(run),
+                 dict(total_kv_blocks=SERVE["total_pages"], block_size=32,
+                      token_budget=512, max_decode_batch=8, cpu_slots=4,
+                      scheduler="mixed"), force_offload=force_offload)
+    if eng.prefix_hit_tokens <= 0:
+        raise AssertionError(f"serve[{label}]: no prefix hits")
     if eng.blocks.cow_count <= 0:
         raise AssertionError(f"serve[{label}]: no copy-on-write ran")
     return eng
@@ -431,8 +625,8 @@ def phase_serve():
     for k in KERNELS.values():
         k["fn"].launches = 0
     try:
-        _serve(backend, 0, force_offload=False)
-        eng = _serve(backend, 1, force_offload=True)
+        _serve_paged(backend, 0, force_offload=False)
+        eng = _serve_paged(backend, 1, force_offload=True)
     finally:
         backend.close()
     launches = {name: k["fn"].launches for name, k in KERNELS.items()}
@@ -450,6 +644,89 @@ def phase_serve():
             raise AssertionError(f"serve: {name} never launched")
     del eng
     return launches
+
+
+DENSE_SERVE = dict(prompts=(4608, 4608, 1024, 1024), decode=16, slots=4,
+                   max_len=6144)
+
+
+def _dense_sessions(run: int):
+    """Two round-0 prompts past gemma2's 4,096-token window (the local
+    layers mask keys in their later chunks and in every decode step) and
+    two of 1,024, arriving 0.1 s apart; then 48- and 32-token rounds."""
+    rng = np.random.default_rng(100 + run)
+    out = []
+    for i, first in enumerate(DENSE_SERVE["prompts"]):
+        tools = rng.uniform(0.2, 0.5, 2)
+        d = DENSE_SERVE["decode"]
+        rounds = [Round(first, d, "sleep", float(tools[0])),
+                  Round(48, d, "sleep", float(tools[1])),
+                  Round(32, d, None, 0.0)]
+        out.append(make_session(0.1 * i, rounds, ideal_time=10.0))
+    return out
+
+
+def phase_serve_dense():
+    """gemma2-27b at full width on the dense slot layout; returns the
+    kernel launches of both runs and the backend (its weights and cache
+    feed the dense profile)."""
+    cfg = get_config("gemma2-27b")
+    t0 = time.monotonic()
+    backend = TorchBackend(cfg, device="cuda", dtype=torch.bfloat16, seed=0,
+                           max_slots=DENSE_SERVE["slots"],
+                           max_len=DENSE_SERVE["max_len"])
+    torch.cuda.synchronize()
+    if backend.layout != "dense":
+        raise AssertionError(f"gemma2 took the {backend.layout} layout")
+    log(f"[serve-dense] gemma2-27b full width (L={cfg.n_layers} "
+        f"d={cfg.d_model} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+        f"Dh={cfg.head_dim_} V={cfg.vocab_size} window={cfg.sliding_window})"
+        f" bf16, dense layout {DENSE_SERVE['slots']} slots x "
+        f"{DENSE_SERVE['max_len']} tokens: set-up "
+        f"{time.monotonic() - t0:.2f}s, device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; calibrated prefill "
+        f"{1.0 / backend.prefill_rate() * 1e6:.1f} us/token, decode step "
+        f"{backend._decode_s_per_step * 1e3:.2f} ms, host link "
+        f"{backend._h2d_bw / 1e9:.2f} GB/s")
+    # zeroed after the backend is built: calibrate runs lm_step too
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+    st = backend.dispatch_stats
+    calls0 = st["prefill_calls"]
+    ecfg = dict(total_kv_blocks=DENSE_SERVE["slots"]
+                * (DENSE_SERVE["max_len"] - 1) // 32, block_size=32,
+                token_budget=512, max_decode_batch=DENSE_SERVE["slots"],
+                cpu_slots=4, scheduler="mixed")
+    try:
+        _serve(backend, _dense_sessions(0), ecfg, force_offload=False)
+        _serve(backend, _dense_sessions(1), ecfg, force_offload=True)
+    except BaseException:
+        backend.close()
+        raise
+    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    n_prefill = st["prefill_calls"] - calls0
+    log(f"[serve-dense] on {torch.cuda.get_device_name(0)}: dispatch_stats "
+        + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                      for k, v in st.items()}))
+    log(f"[serve-dense] prefill_s {st['prefill_s']:.3f}s over "
+        f"{st['prefill_calls']} calls, decode_s {st['decode_s']:.3f}s; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB; swap_stream {backend.swap_stream_stats()}")
+    log(f"[serve-dense] kernel launches on the dense path: {launches} "
+        f"({n_prefill} prefill calls x {cfg.n_layers} layers = "
+        f"{n_prefill * cfg.n_layers})")
+    if st["mixed_calls"] != 0:
+        raise AssertionError("serve-dense: the dense layout ran run_mixed")
+    for name in DENSE_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"serve-dense: {name} never launched")
+    if launches["flash_attention"] != cfg.n_layers * n_prefill:
+        raise AssertionError("serve-dense: flash_attention launches != "
+                             "layers x prefill calls")
+    for name in MAIN_PATH:
+        if launches[name] != 0:
+            raise AssertionError(f"serve-dense: paged kernel {name} ran")
+    return launches, backend
 
 
 # ---------------------------------------------------------------------------
@@ -571,12 +848,122 @@ def phase_timing(errs: Errors, launches):
     return out
 
 
+def _flex_attention(Sq, Skv, *, q_offset, window, softcap):
+    """The one PyTorch call that computes flash_attention's function:
+    ``flex_attention`` (compiled, Triton), the softcap as its score_mod
+    (applied to the scaled score, before the mask) and the causal and
+    window masks as a block mask, so fully masked key blocks are skipped.
+    Timed as the library yardstick; the port never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        q_pos = q_offset + q_idx
+        m = kv_idx <= q_pos
+        if window:
+            m = m & (q_pos - kv_idx < window)
+        return m
+
+    block = create_block_mask(mask_mod, None, None, Sq, Skv, device=DEV)
+    fn = torch.compile(flex_attention)
+    return lambda q, k, v: fn(q, k, v, score_mod=score_mod, block_mask=block,
+                              enable_gqa=True)
+
+
+def phase_flash_timing(errs: Errors):
+    """flash_attention at the dense path's chunk (C 512 at q_offset 4,096
+    over a 6,144-token slot, Hq 32, Hkv 16, D 128, bf16, the model-layout
+    views), for a local (window 4,096) and a global layer, softcap 50.
+    The library yardstick is ``flex_attention`` with the same softcap and
+    masks, on contiguous copies of the same inputs made beforehand; it is
+    held to the plain version at the bf16 tolerance. SDPA (boolean mask),
+    which has no softcap, is a side figure against the kernel run without
+    softcap. Returns the kernels-JSON row (launches filled in by the
+    caller); ms, plain_ms, bound_ms and library_ms are the mean over the
+    two layer kinds, which alternate on the path."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    c = GEMMA2_CHUNK
+    Hq, Hkv, Sq, Skv, D, item = c["Hq"], c["Hkv"], c["Sq"], c["Skv"], \
+        c["D"], 2
+    q, k, v = _flash_inputs(gen, *c.values(), torch.bfloat16,
+                            model_layout=True)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    q_pos = GEMMA2_OFFSET + torch.arange(Sq, device=DEV)
+    kv_pos = torch.arange(Skv, device=DEV)
+    kinds = {}
+    for kind, window in (("local", GEMMA2_WINDOW), ("global", None)):
+        kw = dict(q_offset=GEMMA2_OFFSET, window=window)
+        mask = kv_pos[None] <= q_pos[:, None]
+        if window:
+            mask &= q_pos[:, None] - kv_pos[None] < window
+        pairs = float(mask.sum().item())
+        # keys any row sees, read once; q read once, o written once
+        kv_lo = max(0, GEMMA2_OFFSET - window + 1) if window else 0
+        kv_hi = min(Skv, GEMMA2_OFFSET + Sq)
+        nbytes = 2.0 * (kv_hi - kv_lo) * Hkv * D * item + 2.0 * Hq * Sq * D \
+            * item
+        flops = 4.0 * pairs * Hq * D
+        bound, by = _bound(nbytes, flops, BF16_FLOPS)
+        flex = _flex_attention(Sq, Skv, softcap=GEMMA2_SOFTCAP, **kw)
+
+        def run(kw=kw):
+            return flash_attention(q, k, v, softcap=GEMMA2_SOFTCAP, **kw)
+
+        def plain(kw=kw):
+            return ref.flash_attention_ref(q, k, v, softcap=GEMMA2_SOFTCAP,
+                                           **kw)
+
+        def lib(flex=flex):
+            return flex(qc, kc, vc)
+
+        def nocap(kw=kw):
+            return flash_attention(q, k, v, **kw)
+
+        def sdpa(mask=mask):
+            return F.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=mask[None, None], enable_gqa=True)
+
+        want = plain()
+        errs.check("flex_attention", "bf16", lib(), want,
+                   _flash_tol(torch.bfloat16, want), f"{kind} vs plain")
+        errs.check("flash_attention", "sdpa_bf16", nocap(), sdpa(),
+                   FLASH_BF16_TOL, f"{kind} vs library")
+        k_ms, p_ms, l_ms = time_ms(run), time_ms(plain), time_ms(lib)
+        n_ms, s_ms = time_ms(nocap), time_ms(sdpa)
+        kinds[kind] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                           bound_by=by, library_ms=l_ms,
+                           ms_without_softcap=n_ms,
+                           sdpa_without_softcap_ms=s_ms)
+        log(f"[timing] flash_attention {kind:6s} kernel {k_ms:.4f} ms  "
+            f"plain {p_ms:.4f} ms  flex {l_ms:.4f} ms  bound {bound:.4f} ms "
+            f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
+            f"bound/kernel {bound / k_ms:.3f}; without softcap: kernel "
+            f"{n_ms:.4f} ms, sdpa {s_ms:.4f} ms")
+    mean = (lambda key: (kinds["local"][key] + kinds["global"][key]) / 2)
+    log(f"[timing] flex_attention vs plain max_abs_err "
+        f"{errs.max[('flex_attention', 'bf16')]:.3e}")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": KERNELS["flash_attention"]["source"],
+        "replaces": KERNELS["flash_attention"]["replaces"],
+        "launches": None,
+        "max_abs_err": max(v for (n, dt), v in errs.max.items()
+                           if n == "flash_attention" and dt != "sdpa_bf16"),
+        "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+        "bound_ms": mean("bound_ms"), "bound_by": kinds["global"]["bound_by"],
+        "library_ms": mean("library_ms"), "per_layer_kind": kinds,
+        "launches_per_chunk": get_config("gemma2-27b").n_layers}
+
+
 # ---------------------------------------------------------------------------
 # 7. profile one full-width mixed iteration
 # ---------------------------------------------------------------------------
 
 def phase_profile():
-    from torch.profiler import ProfilerActivity, profile
     cfg = get_config("llama3.2-1b")
     params = tf.init_lm(cfg, torch.Generator(device=DEV).manual_seed(1),
                         torch.bfloat16, DEV)
@@ -593,32 +980,82 @@ def phase_profile():
             i32([C - 1]), i32(np.zeros(B)), i32(lens - 1), i32(d_tables),
             i32(lens), i32(d_tables[np.arange(B), (lens - 1) // page]),
             i32((lens - 1) % page))
+    _profile(f"lm_mixed_paged full width, 1 pack C={C} + {B} decode lanes",
+             lambda: tf.lm_mixed_paged(cfg, params, cache, *args))
+
+
+def _profile(label: str, fn, traced: int = 3):
+    """Wall time per call with the profiler off (5 calls after 2 warm-up
+    calls) and device time by kernel over ``traced`` profiled calls; logs
+    the idle share and the top kernels. Returns (wall_ms, device_ms)."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        tf.lm_mixed_paged(cfg, params, cache, *args)
+        fn()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(5):
-        tf.lm_mixed_paged(cfg, params, cache, *args)
+        fn()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3 / 5     # profiler off
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            tf.lm_mixed_paged(cfg, params, cache, *args)
+        for _ in range(traced):
+            fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
            if getattr(e, "device_time_total", 0) > 0
            and "CUDA" in str(getattr(e, "device_type", ""))]
-    total = sum(e.device_time_total for e in evs) / 3e3
-    log(f"[profile] lm_mixed_paged full width, 1 pack C={C} + {B} decode "
-        f"lanes: wall {wall_ms:.3f} ms/iter (profiler off), device "
-        f"{total:.3f} ms/iter, idle share "
+    total = sum(e.device_time_total for e in evs) / (traced * 1e3)
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms/iter (profiler off), "
+        f"device {total:.3f} ms/iter, idle share "
         f"{max(0.0, 1 - total / wall_ms):.3f}")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:8]:
-        log(f"[profile]   {e.device_time_total / 3e3:9.3f} ms/iter "
-            f"x{e.count // 3:4d}  {e.key[:90]}")
+        log(f"[profile]   {e.device_time_total / (traced * 1e3):9.3f} "
+            f"ms/iter x{e.count // traced:4d}  {e.key[:90]}")
     if not evs:
         log("[profile] no device time in the trace: not measured")
+    return wall_ms, total
+
+
+def phase_profile_dense(backend) -> None:
+    """One full-width dense prefill chunk (C 512 at q_offset 4,096, slot 0)
+    and one dense decode step over the 4 slots, on the serve's weights and
+    cache; then the share of the decode step that its plain attention
+    (``layers.attention`` over every slot's 6,144 positions) takes."""
+    from repro_torch.models import layers
+    cfg, params, cache = backend.cfg, backend.params, backend._impl.cache
+    C, q0 = GEMMA2_CHUNK["Sq"], GEMMA2_OFFSET
+    toks = torch.zeros((1, C), dtype=torch.int32, device=DEV)
+    slot0 = tf.KVCache(cache.k[:, :1], cache.v[:, :1])
+    _profile(f"dense lm_step prefill chunk C={C} at q_offset {q0} "
+             f"({cfg.n_layers} flash_attention launches)",
+             lambda: tf.lm_step(cfg, params, slot0, toks, q_offset=q0))
+    R, Smax = cache.k.shape[1], cache.k.shape[2]
+    d_pos = torch.tensor([4700, 4650, 1100, 1050][:R], dtype=torch.int32,
+                         device=DEV)
+    d_toks = torch.zeros((R,), dtype=torch.int32, device=DEV)
+    wall, _ = _profile(f"dense lm_decode step over {R} slots of {Smax}",
+                       lambda: tf.lm_decode(cfg, params, cache, d_toks,
+                                            d_pos))
+    # the decode step's plain attention alone, at its shapes, per kind
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    q = _randn(gen, (R, 1, cfg.n_heads, cfg.head_dim_), torch.bfloat16)
+    kv_pos = torch.arange(Smax, dtype=torch.int32, device=DEV).expand(R, Smax)
+    q_pos = d_pos[:, None]
+    valid = kv_pos <= q_pos
+    per_kind = {}
+    for is_local in (True, False):
+        per_kind[is_local] = time_ms(lambda: layers.attention(
+            q, cache.k[0], cache.v[0], q_pos, kv_pos, kv_valid=valid,
+            window=cfg.sliding_window, is_local=is_local,
+            softcap=cfg.attn_logit_softcap), iters=20)
+    n_local = sum(tf.layer_kind_flags(cfg))
+    attn_ms = n_local * per_kind[True] + \
+        (cfg.n_layers - n_local) * per_kind[False]
+    log(f"[profile] dense decode plain attention: local {per_kind[True]:.4f}"
+        f" ms, global {per_kind[False]:.4f} ms per layer; x{cfg.n_layers} "
+        f"layers = {attn_ms:.3f} ms of a {wall:.3f} ms step "
+        f"(share {attn_ms / wall:.3f})")
 
 
 def main() -> int:
@@ -627,6 +1064,11 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # torch.compile (the flex_attention yardstick) caches inside the checkout
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
     t_all = time.monotonic()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -648,12 +1090,31 @@ def main() -> int:
     log(f"[kernels] parity done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     phase_model()
+    phase_model_dense()
     log(f"[model] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     launches = phase_serve()
     log(f"[serve] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
     rows = phase_timing(errs, launches)
+    flash_row = phase_flash_timing(errs)
+    log(f"[timing] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
     phase_profile()
+    log(f"[profile] done in {time.monotonic() - t0:.2f}s")
+    gc.collect()                     # the llama weights and pools go first
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dense_launches, backend = phase_serve_dense()
+    log(f"[serve-dense] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    try:
+        phase_profile_dense(backend)
+    finally:
+        backend.close()
+    log(f"[profile-dense] done in {time.monotonic() - t0:.2f}s")
+    flash_row["launches"] = dense_launches["flash_attention"]
+    rows.append(flash_row)
     log(f"[done] {time.monotonic() - t_all:.2f}s; card: {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,31 +1,41 @@
 """Live PyTorch execution backend: the same Engine/tick loop as
 ``repro.engine.jax_runner``, but ``run_batch`` runs the model with PyTorch
-and the Hopper paged-attention kernels, and returns wall-clock seconds.
+and the Hopper attention kernels, and returns wall-clock seconds.
 
-One cache layout is ported: **paged**, a global pool of KV pages
-``(L, P+1, page, Hkv, D)`` driven by ``kvcache.pool.BlockPool`` block
-tables. The engine snapshots each batched session's lease into
-``BatchWork.leases`` and this backend executes placement from those
-tables: prefill scatters chunk KV into leased pages and attends
-gather-free over the lease (``paged_flash_attention`` reads pages in
-place), decode feeds ``(B, max_pages)`` tables to ``paged_attention_fused``
-with the new token's KV write inside the kernel, copy-on-write events are
-mirrored as device page copies, and host offload moves KV per block (only
-private blocks cross PCIe). Page id P (one past the pool) is scratch:
-padded prefill lanes and idle decode lanes park their writes there. The
-slot-dense layout of the JAX package is not ported yet.
+Two cache layouts, as in the reference:
 
-Unlike JAX's donated buffers, the pool tensors are updated **in place**;
-a swap-out snapshot is therefore a real copy (advanced indexing), taken in
-dispatch order on the compute stream before any later write. On the card
-the host crossings run on side CUDA streams driven by the background
+* **paged** (default) — a global pool of KV pages ``(L, P+1, page, Hkv,
+  D)`` driven by ``kvcache.pool.BlockPool`` block tables. The engine
+  snapshots each batched session's lease into ``BatchWork.leases`` and this
+  backend executes placement from those tables: prefill scatters chunk KV
+  into leased pages and attends gather-free over the lease
+  (``paged_flash_attention`` reads pages in place), decode feeds
+  ``(B, max_pages)`` tables to ``paged_attention_fused`` with the new
+  token's KV write inside the kernel, copy-on-write events are mirrored as
+  device page copies, and host offload moves KV per block (only private
+  blocks cross PCIe). Page id P (one past the pool) is scratch: padded
+  prefill lanes and idle decode lanes park their writes there.
+
+* **dense** — R fixed slots, each a dense ``max_len``-token region
+  (``KVCache`` ``(L, R, max_len, Hkv, D)``; position ``max_len - 1`` is the
+  slot's scratch). The path for attention variants the paged kernels do
+  not cover (sliding-window alternation, logit softcaps: gemma2), and the
+  parity baseline of the paged path. Prefill chunks run the ``flash_attention``
+  kernel over the slot in place; decode steps every slot through the plain
+  ``layers.attention``, as the reference does; host offload copies whole
+  slots, synchronously.
+
+Unlike JAX's donated buffers, the cache tensors are updated **in place**;
+a swap-out snapshot is therefore a real copy, taken in dispatch order on
+the compute stream before any later write. On the card the paged layout's
+host crossings run on side CUDA streams driven by the background
 :class:`SwapStream` worker, into pinned host memory.
 
 Chunks and lane counts are bucketed to powers of two, as in the reference,
 so the same shapes recur. The PerfOracle (recompute_time / prefill_rate /
 swap_time) is calibrated at startup by timing one prefill chunk, one
-decode step and one page round trip, synchronising the card inside each
-timed region.
+decode step and one page (or slot) round trip, synchronising the card
+inside each timed region.
 """
 from __future__ import annotations
 
@@ -43,9 +53,10 @@ from repro_torch.kvcache.disk_tier import DiskFileStore
 from repro_torch.kvcache.pool import DeviceBindingMap
 from repro_torch.kvcache.swap_stream import SwapStream, TransferFuture
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (PagedKVCache, init_lm,
-                                            lm_decode_paged, lm_mixed_paged,
-                                            lm_prefill_paged, supports_paged)
+from repro_torch.models.transformer import (KVCache, PagedKVCache, init_lm,
+                                            lm_decode, lm_decode_paged,
+                                            lm_mixed_paged, lm_prefill_paged,
+                                            lm_step, supports_paged)
 
 
 def _bucket(n: int, lo: int = 32) -> int:
@@ -76,11 +87,10 @@ class TorchBackend:
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port serves the dense family "
                 "(ROADMAP.md, 'Modules still to port')")
-        if layout != "paged" or not supports_paged(cfg):
-            raise NotImplementedError(
-                "the dense slot layout is not ported yet (ROADMAP.md, "
-                "'Modules still to port'): only layout='paged' on configs "
-                "without sliding windows or softcaps")
+        if layout not in ("paged", "dense"):
+            raise ValueError(f"unknown layout {layout!r}")
+        if layout == "paged" and not supports_paged(cfg):
+            layout = "dense"          # window/softcap: no paged kernel
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -90,19 +100,23 @@ class TorchBackend:
             params = init_lm(cfg, gen, dtype, self.device)
         self.params = params
         self.layout = layout
-        if total_pages is None:
-            total_pages = max(1, max_slots * max_len // page_size)
-        self._impl = _PagedLayout(self, total_pages, page_size,
-                                  async_swap=async_swap,
-                                  disk_spool=disk_spool)
+        if layout == "paged":
+            if total_pages is None:
+                total_pages = max(1, max_slots * max_len // page_size)
+            self._impl = _PagedLayout(self, total_pages, page_size,
+                                      async_swap=async_swap,
+                                      disk_spool=disk_spool)
+        else:
+            self._impl = _DenseLayout(self)
         # prefix sharing needs placement to follow block ids physically;
         # a real decoder also needs the last prompt token's logits, so a
         # full prefix hit must still leave >= 1 token to compute
-        self.supports_prefix_sharing = True
-        self.requires_last_token_compute = True
+        self.supports_prefix_sharing = layout == "paged"
+        self.requires_last_token_compute = layout == "paged"
         # async swap stream: D2H drains and H2D prefetches run on a
         # background worker; the engine gates restores on their futures
-        self.supports_async_swap = async_swap
+        # (the dense layout swaps whole slots synchronously)
+        self.supports_async_swap = layout == "paged" and async_swap
         # live-path dispatch timing, same keys as JaxBackend.dispatch_stats:
         # cumulative wall seconds per run_batch phase + call counts, and the
         # analytic prefill HBM bytes of the gather path vs the in-place path
@@ -194,9 +208,11 @@ class TorchBackend:
         for s, _toks in work.swapins:
             impl.swap_in(s, work.leases.get(s.sid, ()))
         t3 = time.monotonic()
-        if work.mixed and (work.prefills or work.decodes):
-            # iteration-level tick: prefill packs + decode lanes in one
-            # lm_mixed_paged call (attributed to mixed_s)
+        if work.mixed and (work.prefills or work.decodes) and \
+                isinstance(impl, _PagedLayout):
+            # iteration-level tick on the paged layout: prefill packs +
+            # decode lanes in one lm_mixed_paged call (attributed to
+            # mixed_s); the dense layout takes the round path below
             impl.run_mixed(work)
             t4 = t5 = time.monotonic()
             st["mixed_s"] += t4 - t3
@@ -220,7 +236,8 @@ class TorchBackend:
         return t5 - t0
 
     def swap_stream_stats(self) -> Optional[Dict]:
-        """Background stream counters (None without a stream)."""
+        """Background stream counters (None without a stream, as for the
+        dense layout, which swaps synchronously)."""
         stream = self._impl.stream
         return stream.stats() if stream is not None else None
 
@@ -778,3 +795,173 @@ class _PagedLayout:
                 s.meta.setdefault("context_ids", []).append(tok)
         for _ in packs:
             self._account_prefill(Np, C)
+
+
+class _DenseLayout:
+    """Slot-dense layout: R fixed slots of ``max_len`` dense tokens.
+
+    Position ``max_len - 1`` of every slot is scratch: padded prefill lanes
+    and idle decode lanes park their writes there, so sessions may use at
+    most ``max_len - 1`` tokens. Host offload copies whole slots (no block
+    granularity), synchronously; there is no swap stream."""
+
+    stream = None
+
+    def __init__(self, backend: TorchBackend):
+        self.b = backend
+        self.dev = backend.device
+        self.cache = KVCache.zeros(backend.cfg, backend.max_slots,
+                                   backend.max_len, backend.dtype, self.dev)
+        self._slots: Dict[int, int] = {}          # sid -> slot
+        self._free_slots = list(range(backend.max_slots))
+        self._host_kv: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    # --- the compute calls ------------------------------------------------
+    def _t(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def _decode_fn(self, tokens, positions) -> torch.Tensor:
+        b = self.b
+        logits, self.cache = lm_decode(b.cfg, b.params, self.cache,
+                                       self._t(tokens), self._t(positions))
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _prefill_fn(self, tokens, slot: int, start: int,
+                    n_real: int) -> torch.Tensor:
+        """Single-slot chunked prefill: a (1, C) step on a view of the
+        slot's cache region, written in place. tokens: (1, C), the first
+        ``n_real`` real from position ``start``; ``lm_step`` parks the
+        padded lanes at the scratch position."""
+        b = self.b
+        sub = KVCache(self.cache.k[:, slot:slot + 1],
+                      self.cache.v[:, slot:slot + 1])
+        logits, _ = lm_step(b.cfg, b.params, sub, self._t(tokens),
+                            q_offset=start, n_real=n_real)
+        return torch.argmax(logits[0, n_real - 1], dim=-1).to(torch.int32)
+
+    # --- binding / oracle -------------------------------------------------
+    def bind_kv_pool(self, pool) -> None:
+        pass                  # slots are placed here, not by block ids
+
+    def kv_bytes_per_token(self) -> float:
+        k = self.cache.k     # (L, R, T, Hkv, D): bytes/token = all-but-R,T
+        per_tok = 2 * k.numel() // (k.shape[1] * k.shape[2]) * k.element_size()
+        return float(per_tok)
+
+    def calibrate(self) -> None:
+        """Time one 64-token prefill chunk (slot 0, positions 0..63), one
+        decode step over every slot (parked at the scratch position) and
+        one slot round trip, synchronising the card inside each timed
+        region."""
+        b = self.b
+        toks = np.zeros((1, 64), np.int32)
+
+        def pf():
+            int(self._prefill_fn(toks, 0, 0, 64))
+
+        b._prefill_s_per_tok = b._time_once(pf) / 64
+        tok1 = np.zeros((b.max_slots,), np.int32)
+        pos1 = np.full((b.max_slots,), b.max_len - 1, np.int32)
+
+        def df():
+            self._decode_fn(tok1, pos1).cpu()
+
+        b._decode_s_per_step = b._time_once(df)
+        slot_bytes = 2 * self.cache.k[:, 0].numel() * \
+            self.cache.k.element_size()
+
+        def xfer():
+            host = (self.cache.k[:, 0].to("cpu", copy=True),
+                    self.cache.v[:, 0].to("cpu", copy=True))
+            host[0].to(self.dev)
+            host[1].to(self.dev)
+            b._sync()
+
+        b._h2d_bw = max(1e6, 2 * slot_bytes / b._time_once(xfer))
+
+    # --- slots ------------------------------------------------------------
+    def _slot_of(self, sid: int) -> int:
+        if sid not in self._slots:
+            if not self._free_slots:
+                raise RuntimeError("dense layout out of slots")
+            self._slots[sid] = self._free_slots.pop()
+        return self._slots[sid]
+
+    def release_session(self, sid: int) -> None:
+        slot = self._slots.pop(sid, None)
+        if slot is not None:
+            self._free_slots.append(slot)
+
+    def drop_host(self, sid: int) -> None:
+        self._host_kv.pop(sid, None)
+
+    def close(self) -> None:
+        pass
+
+    # --- whole-slot host offload ------------------------------------------
+    def swap_out(self, s: Session) -> None:
+        slot = self._slots.get(s.sid)
+        if slot is None:
+            return None
+        # a copy even on the CPU device, where .cpu() would alias the slot
+        self._host_kv[s.sid] = (self.cache.k[:, slot].to("cpu", copy=True),
+                                self.cache.v[:, slot].to("cpu", copy=True))
+        self.release_session(s.sid)
+        return None
+
+    def swap_in(self, s: Session, lease) -> None:
+        host = self._host_kv.pop(s.sid, None)
+        if host is None:
+            return
+        slot = self._slot_of(s.sid)
+        self.cache.k[:, slot] = host[0]
+        self.cache.v[:, slot] = host[1]
+
+    def prefetch_swap_in(self, sid: int) -> Optional[TransferFuture]:
+        return None
+
+    def spill_host(self, sid: int) -> Optional[TransferFuture]:
+        return None           # no NVMe data plane: the tier is modeled
+
+    def fill_host(self, sid: int) -> Optional[TransferFuture]:
+        return None
+
+    def apply_cow(self, copies) -> None:
+        pass                  # no physical sharing: nothing aliases a slot
+
+    # --- compute ----------------------------------------------------------
+    def prefill(self, s: Session, chunk: int, lease) -> None:
+        b = self.b
+        slot = self._slot_of(s.sid)
+        ids = b._context_ids(s)
+        start = s.resident_len
+        segment = ids[start:start + chunk]
+        bk = _bucket(len(segment))
+        toks = np.zeros((1, bk), np.int32)
+        toks[0, :len(segment)] = segment
+        nxt = self._prefill_fn(toks, slot, start, len(segment))
+        s.meta["next_token"] = int(nxt)
+
+    def decodes(self, decodes, leases) -> None:
+        b = self.b
+        g_max = max(g for _, g in decodes)
+        scratch = b.max_len - 1
+        for step in range(g_max):
+            toks = np.zeros((b.max_slots,), np.int32)
+            pos = np.full((b.max_slots,), scratch, np.int32)
+            live = []
+            for s, g in decodes:
+                if step >= g:
+                    continue
+                slot = self._slot_of(s.sid)
+                toks[slot] = s.meta.get("next_token", 1)
+                pos[slot] = s.resident_len + step
+                live.append((s, slot))
+            if not live:
+                break
+            nxt = self._decode_fn(toks, pos).cpu().numpy()
+            for s, slot in live:
+                tok = int(nxt[slot])
+                s.meta.setdefault("generated", []).append(tok)
+                s.meta["next_token"] = tok
+                s.meta.setdefault("context_ids", []).append(tok)

@@ -1,0 +1,123 @@
+"""Dense flash attention on Hopper: the chunked-prefill attention of the
+dense slot layout (gemma2's sliding windows and logit softcaps included).
+
+Replaces the Pallas TPU kernel ``flash_attention``
+(``src/repro/kernels/flash_attention.py:116``, body ``_kernel``); the CUDA
+source is ``csrc/flash_attention.cu``. Queries ``(B, Hq, Sq, D)`` attend
+over ``(B, Hkv, Skv, D)`` keys and values with GQA; row ``i`` sits at kv
+position ``q_offset + i``. Score ``(q.k) * D**-0.5``, then ``c*tanh(s/c)``
+for a softcap ``c``, then the causal and window masks. Every operand is
+passed with its strides (last dimension contiguous), so the model's
+``(B, Sq, Hq, D)`` queries and a dense cache slot ``(B, Smax, Hkv, D)``
+reach the kernel as transposed views, never as copies; the output is
+allocated with the query's memory layout.
+
+What bounds it on the H100: a chunk of C queries over N visible keys does
+about ``4 * C * N * Hq * D`` flops against ``2 * Skv * Hkv * D *
+itemsize`` bytes of KV, so prefill chunks are compute-bound. The simple
+design keeps 64 query rows per block in registers, stages 32-key tiles of
+K and V in shared memory as f32 and runs the products on the CUDA cores;
+each block walks only the keys its rows can see (window start to causal
+end, never past ``Skv``) and masks ragged Sq rows itself. PERF.md records
+its time against the bound.
+
+On a CPU tensor the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.flash_attention_ref`); on a CUDA tensor it
+launches the kernel or raises. ``.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+_vp, _int, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                       _int, _int, _f32, _int, _int, _f32, _int, _vp]
+        fn.restype = _int
+        lib.flash_rows_per_block.argtypes = []
+        lib.flash_rows_per_block.restype = _int
+    return lib
+
+
+def _check(q, k, v, window, softcap, q_offset):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q must be (B, Hq, Sq, D), k/v (B, Hkv, Skv, D)")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, Dk = k.shape
+    if v.shape != k.shape or k.shape[0] != B or Dk != D or Hq % Hkv:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported dtype {q.dtype}")
+    for t in (k, v):
+        if t.dtype != q.dtype:
+            raise TypeError(f"k/v dtype {t.dtype} != q {q.dtype}")
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError(f"tensors on {t.device} and {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError("flash attention needs a contiguous last "
+                             "dimension")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    if window is not None and window <= 0:
+        raise ValueError(f"window {window} must be positive")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap {softcap} must be positive")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None, q_offset: int = 0):
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
+
+    ``Sq`` and ``Skv`` may be any length; rows past ``Skv - q_offset``
+    (padded lanes of a chunk) see keys up to ``Skv - 1`` only. The operands
+    may be strided views with a contiguous last dimension."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    q_offset = int(q_offset)
+    _check(q, k, v, window, softcap, q_offset)
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    G = Hq // Hkv
+    o = torch.empty_like(q)           # keeps q's layout (dense views too)
+    if B == 0 or Sq == 0:
+        return o
+    lib = _lib()
+    if G > lib.flash_rows_per_block():
+        raise ValueError(f"{G} query heads per kv head exceed one block")
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, o)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), ctypes.addressof(strides), B, Sq, Skv, Hkv, G, D,
+            D ** -0.5, int(causal), int(window or 0), float(softcap or 0.0),
+            q_offset, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

@@ -1,19 +1,26 @@
-"""Public kernel entry points of the paged attention path.
+"""Public kernel entry points of the attention paths.
 
 Model code calls these, never a kernel wrapper directly. Dispatch is by
 the tensor's device alone: a CPU tensor runs the plain PyTorch version, a
 CUDA tensor launches the Hopper kernel (or raises). There is no override
 and no environment switch.
 
+    attention(...)         dense chunked-prefill attention (flash | plain)
     prefill_attention(...) gather-free paged prefill (paged flash | plain)
     decode_attention(...)  paged decode attention (paged kernel | plain),
                            optionally with the KV write fused in
 """
 from __future__ import annotations
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_fused)
 from repro_torch.kernels.paged_flash_attention import paged_flash_attention
+
+
+# dense chunked-prefill attention, one host ``q_offset`` for the batch:
+# the wrapper itself dispatches by device (flash kernel | plain version)
+attention = flash_attention
 
 
 def prefill_attention(q, k_pages, v_pages, block_table, kv_len, q_offset):

@@ -1,17 +1,49 @@
-"""Plain PyTorch versions of the paged attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
 They mirror ``repro.kernels.ref`` op for op (f32 einsum, scale applied
-after the einsum, ``-1e30`` mask value, softmax) and are the ground truth
-the Hopper kernels are held against: the CPU tests compare them with the
-JAX oracles, and ``chip_smoke.py`` compares each kernel with them on the
-card. On a CPU tensor the kernel wrappers call these directly.
+after the einsum, softcap before the mask, ``-1e30`` mask value, softmax)
+and are the ground truth the Hopper kernels are held against: the CPU
+tests compare them with the JAX oracles, and ``chip_smoke.py`` compares
+each kernel with them on the card. On a CPU tensor the kernel wrappers
+call these directly.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        q_offset: int = 0):
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D). Returns (B, Hq, Sq, D).
+
+    ``q_offset`` positions the queries at kv index ``q_offset + i``
+    (chunked prefill: queries are the tail of the kv sequence).
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.to(F32).reshape(B, Hkv, G, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(F32)) * (D ** -0.5)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kv_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
+    s = torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(F32))
+    return o.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_table, lengths):

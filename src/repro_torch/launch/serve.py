@@ -13,6 +13,11 @@ backend.
     PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
         --full-width
 
+    # gemma2-27b (sliding windows, softcaps) at full width: the backend
+    # takes the dense slot layout and the flash_attention kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
+        --arch gemma2-27b --full-width
+
 ``--device cpu`` runs the live engine on the CPU with the kernels' plain
 versions; without it the live engine needs a CUDA card and raises when
 there is none.

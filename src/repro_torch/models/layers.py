@@ -1,5 +1,6 @@
-"""Shared functional layers of the paged serving path: norms, RoPE, GQA
-projections, (gated) MLP and the paged attention calls.
+"""Shared functional layers of the serving paths: norms, RoPE, GQA
+projections, (gated) MLP, the position-driven dense attention of the JAX
+package and the attention kernel calls.
 
 Everything is a plain function of ``(params, inputs)``; parameters are
 dicts of tensors, as in ``repro.models.layers``. Where the JAX package asks
@@ -10,7 +11,7 @@ ordinary library matmuls, as the JAX package left them to XLA.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +20,7 @@ from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 F32 = torch.float32
+NEG_INF = -1e30
 
 
 def matmul_f32(x, w):
@@ -79,8 +81,107 @@ def rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Attention projections and the paged attention calls
+# Attention (GQA, optional sliding window / softcap), dense-KV formulation.
+# Plain PyTorch, as the JAX package keeps it plain jnp: the dense layout's
+# decode step runs it (one row per slot, each at its own position, which
+# the flash kernel's single q_offset does not cover).
 # ---------------------------------------------------------------------------
+
+def attention_scores_mask(q_pos, kv_pos, *, causal: bool,
+                          window: Optional[int], kv_valid=None):
+    """Boolean mask (..., Sq, Skv); True = attend."""
+    m = torch.ones(q_pos.shape[-1:] + kv_pos.shape[-1:], dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m = kv_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m = m & (q_pos[..., :, None] - kv_pos[..., None, :] < window)
+    if kv_valid is not None:
+        m = m & kv_valid[..., None, :]
+    return m
+
+
+def mha(q, k, v, mask, *, softcap: Optional[float] = None,
+        scale: Optional[float] = None):
+    """Grouped-query attention without materializing repeated KV.
+
+    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); mask: (B, Sq, Skv) or (Sq, Skv).
+    """
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(F32),
+                          k.to(F32)) * scale
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(F32))
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _block_mask(q_pos, kv_pos, kv_valid, *, causal: bool,
+                window: Optional[int], is_local: Optional[bool]):
+    """Mask for one q block, computed from positions. q_pos: (B, Cq);
+    kv_pos: (B, Skv). ``is_local=False`` switches the window off (a global
+    layer of the gemma2 alternation); None keeps it."""
+    if causal:
+        m = kv_pos[:, None, :] <= q_pos[..., None]
+    else:
+        m = torch.ones(q_pos.shape + kv_pos.shape[-1:], dtype=torch.bool,
+                       device=q_pos.device)
+    if window is not None and is_local is not False:
+        m = m & (q_pos[..., None] - kv_pos[:, None, :] < window)
+    if kv_valid is not None:
+        m = m & kv_valid[:, None, :]
+    return m
+
+
+def attention(q, k, v, q_pos, kv_pos, *, kv_valid=None, causal: bool = True,
+              window: Optional[int] = None, is_local: Optional[bool] = None,
+              softcap: Optional[float] = None, q_chunk: int = 2048):
+    """Position-driven GQA attention, blocked over the query dimension so
+    the score/mask working set is O(q_chunk * Skv), not O(Sq * Skv).
+
+    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); q_pos: (B, Sq); kv_pos:
+    (B, Skv). ``is_local``: the per-layer flag of the gemma2 alternation
+    (a Python bool here; a traced 0/1 scalar in the JAX package).
+    """
+    B, Sq, H, D = q.shape
+    if Sq <= q_chunk or Sq % q_chunk != 0:
+        mask = _block_mask(q_pos, kv_pos, kv_valid, causal=causal,
+                           window=window, is_local=is_local)
+        return mha(q, k, v, mask, softcap=softcap)
+    outs = []
+    for c0 in range(0, Sq, q_chunk):
+        mask = _block_mask(q_pos[:, c0:c0 + q_chunk], kv_pos, kv_valid,
+                           causal=causal, window=window, is_local=is_local)
+        outs.append(mha(q[:, c0:c0 + q_chunk], k, v, mask, softcap=softcap))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Attention projections and the attention kernel calls
+# ---------------------------------------------------------------------------
+
+def dense_prefill_attention(q, k, v, *, window: Optional[int],
+                            softcap: Optional[float], q_offset: int):
+    """Causal chunked-prefill attention of one batch whose rows all start
+    at the host-side ``q_offset`` (row ``i`` at ``q_offset + i``).
+
+    q: (B, Sq, Hq, D) **model layout**; k/v: (B, Skv, Hkv, D), e.g. a
+    dense cache slot. Returns (B, Sq, Hq, D). All three reach the flash
+    kernel as transposed views: nothing is copied."""
+    from repro_torch.kernels import ops            # lazy: keeps layers cheap
+    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      causal=True, window=window, softcap=softcap,
+                      q_offset=q_offset)
+    return o.transpose(1, 2)
+
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, lengths, *,
                            k_new=None, v_new=None, write_pages=None,

@@ -1,22 +1,24 @@
-"""Decoder-only LM on a paged KV pool: the serving path of
-``repro.models.transformer`` (dense family) in PyTorch.
+"""Decoder-only LM: the serving paths of ``repro.models.transformer``
+(dense family) in PyTorch, on a paged KV pool and on the dense slot cache.
 
 The layer ``scan`` of the JAX package becomes a loop over the stacked
 per-layer weights, and the pack ``scan`` of ``lm_mixed_paged`` a loop over
-packs. JAX's functional, donated cache updates become **in-place** writes
-into the pool tensors: every ``lm_*_paged`` function mutates ``cache.k`` /
-``cache.v`` and still returns the cache, so call sites read like the
-reference. Only the ``dense`` family is ported; ``moe`` raises.
+packs; the gemma2 local/global alternation is a per-layer Python flag. JAX's
+functional, donated cache updates become **in-place** writes into the
+cache tensors: ``lm_step`` and every ``lm_*_paged`` function mutate
+``cache.k`` / ``cache.v`` and still return the cache, so call sites read
+like the reference. Only the ``dense`` family is ported; ``moe`` raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (F32, apply_norm, attn_out, attn_qkv,
+from repro_torch.models.layers import (F32, apply_norm, attention, attn_out,
+                                       attn_qkv, dense_prefill_attention,
                                        matmul_f32, mlp,
                                        paged_decode_attention,
                                        paged_prefill_attention)
@@ -29,9 +31,21 @@ _MOE_TODO = ("the MoE chain (_route/_dispatch/_combine/_expert_ffn) is not "
 # init
 # ---------------------------------------------------------------------------
 
+_DRAW_ELEMS = 1 << 27       # f32 values drawn at once (512 MiB)
+
+
 def _normal(shape, scale, generator, dtype, device):
-    w = torch.randn(shape, generator=generator, dtype=F32, device=device)
-    return w.mul_(scale).to(dtype)
+    """``scale * N(0, 1)`` in ``dtype``, drawn in f32 slices along the
+    leading axis: a whole stacked full-width tensor in f32 (gemma2-27b's
+    46 x 4608 x 36864 MLP weights: 31 GB) would not fit beside the model."""
+    w = torch.empty(shape, dtype=dtype, device=device)
+    rows = w.reshape(shape[0], -1)
+    step = max(1, _DRAW_ELEMS // max(1, rows.shape[1]))
+    for r0 in range(0, shape[0], step):
+        part = torch.randn(rows[r0:r0 + step].shape, generator=generator,
+                           dtype=F32, device=device)
+        rows[r0:r0 + step] = part.mul_(scale)
+    return w
 
 
 def _norm_params(cfg: ModelConfig, lead, dim, dtype, device):
@@ -88,6 +102,17 @@ def layer_params(layers, l: int):
     return layers[l]
 
 
+def layer_kind_flags(cfg: ModelConfig) -> Tuple[bool, ...]:
+    """(L,) Python flags: True where the layer uses local (sliding-window)
+    attention. The JAX package carries them as a float array through its
+    layer scan; the port's layer loop reads them as plain bools."""
+    return tuple(k == "local" for k in cfg.layer_kinds())
+
+
+def _window(cfg: ModelConfig, is_local: bool) -> Optional[int]:
+    return cfg.sliding_window if is_local else None
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -122,6 +147,143 @@ def _ffn_residual(cfg: ModelConfig, lp, x, o):
     if cfg.post_sublayer_norm:
         f = apply_norm(cfg, lp["ln_post_mlp"], f)
     return x + f
+
+
+# ---------------------------------------------------------------------------
+# dense KV: one max_len region per batch row (the slot-dense layout)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """Dense per-layer KV cache: k/v (L, B, Smax, Hkv, Dh), updated in
+    place by ``lm_step``."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: ModelConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16, device="cpu"):
+        shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        return cls(torch.zeros(shp, dtype=dtype, device=device),
+                   torch.zeros(shp, dtype=dtype, device=device))
+
+
+def _layer_full(cfg: ModelConfig, x, lp, is_local: bool, positions):
+    """Full-sequence layer (prefill from position 0). Returns (x, (k, v))."""
+    h = apply_norm(cfg, lp["ln_attn"], x)
+    q, k, v = attn_qkv(cfg, lp["attn"], h, positions)
+    o = dense_prefill_attention(q, k, v, window=_window(cfg, is_local),
+                                softcap=cfg.attn_logit_softcap, q_offset=0)
+    return _ffn_residual(cfg, lp, x, o), (k, v)
+
+
+def lm_forward(cfg: ModelConfig, params, tokens, *,
+               return_cache: bool = False):
+    """tokens (B, S) -> logits (B, S, V) float32; optionally the per-layer
+    KV as a ``KVCache`` of length S.
+
+    The serving subset of the JAX ``lm_forward``: every row runs at
+    positions ``0..S-1`` through the flash attention (``q_offset`` 0). The
+    training and multimodal arguments (``positions``, ``embeds``,
+    ``remat``, ``pctx``) are not ported."""
+    x = _embed(cfg, params, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    ks, vs = [], []
+    for l, is_local in enumerate(layer_kind_flags(cfg)):
+        x, (k, v) = _layer_full(cfg, x, layer_params(params["layers"], l),
+                                is_local, positions)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
+    x = apply_norm(cfg, params["ln_final"], x)
+    logits = _unembed(cfg, params, x)
+    if return_cache:
+        return logits, KVCache(torch.stack(ks), torch.stack(vs))
+    return logits
+
+
+def lm_prefill(cfg: ModelConfig, params, tokens):
+    """tokens (B, S) -> (last-position logits (B, V), KVCache of length S)."""
+    logits, cache = lm_forward(cfg, params, tokens, return_cache=True)
+    return logits[:, -1], cache
+
+
+def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
+            positions=None, *, q_offset: Optional[int] = None,
+            n_real: Optional[int] = None):
+    """An incremental step against the dense cache, written in place.
+    tokens: (B, C) int32. Every layer writes its new KV at the step's
+    positions (also its RoPE positions) and then attends over the cache
+    (plus the sliding window on local layers). Returns (logits (B, C, V)
+    float32, cache).
+
+    Decode: ``positions`` (B, 1) int32, every row at its own position;
+    plain ``layers.attention`` over the whole cache with ``kv_pos <=
+    position``, as in the JAX package.
+
+    Chunked prefill: ``q_offset`` (host int) instead of ``positions``, one
+    sequence (B == 1) whose first ``n_real`` rows (default C) sit at
+    ``q_offset, q_offset + 1, ...``; the rest are padded lanes parked at
+    the scratch position ``Smax - 1``, their outputs garbage. The host
+    start is the only source of the chunk's positions: it drives RoPE, the
+    KV writes and the flash attention's mask. Anything else raises."""
+    B, C = tokens.shape
+    Smax = cache.k.shape[2]
+    if q_offset is None:
+        if positions is None or C != 1:
+            raise ValueError("lm_step takes decode positions (B, 1), or a "
+                             "chunk's host-side q_offset")
+    else:
+        if positions is not None or B != 1:
+            raise ValueError("lm_step with q_offset is the chunked prefill "
+                             "of one sequence: B == 1 and no positions")
+        q_offset = int(q_offset)
+        n_real = C if n_real is None else int(n_real)
+        end = Smax if n_real == C else Smax - 1   # padded lanes: scratch
+        if not 0 < n_real <= C or q_offset + n_real > end:
+            raise ValueError(f"{n_real} real rows of a {C}-row chunk at "
+                             f"{q_offset} do not fit below {end}")
+        positions = torch.full((1, C), Smax - 1, dtype=torch.int32,
+                               device=tokens.device)
+        positions[0, :n_real] = torch.arange(q_offset, q_offset + n_real,
+                                             dtype=torch.int32,
+                                             device=tokens.device)
+    x = _embed(cfg, params, tokens)                   # (B, C, D)
+    q_pos = positions
+    pos = positions.long()
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    if q_offset is None:
+        kv_pos = torch.arange(Smax, dtype=positions.dtype,
+                              device=x.device).expand(B, Smax)
+        kv_valid = kv_pos <= positions.max(dim=1, keepdim=True).values
+    for l, is_local in enumerate(layer_kind_flags(cfg)):
+        lp = layer_params(params["layers"], l)
+        h = apply_norm(cfg, lp["ln_attn"], x)
+        q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
+        k_l, v_l = cache.k[l], cache.v[l]             # (B, Smax, Hkv, D)
+        k_l.index_put_((b_idx, pos), k_new)
+        v_l.index_put_((b_idx, pos), v_new)
+        if q_offset is None:
+            o = attention(q, k_l, v_l, q_pos, kv_pos, kv_valid=kv_valid,
+                          causal=True, window=cfg.sliding_window,
+                          is_local=is_local, softcap=cfg.attn_logit_softcap)
+        else:
+            o = dense_prefill_attention(q, k_l, v_l,
+                                        window=_window(cfg, is_local),
+                                        softcap=cfg.attn_logit_softcap,
+                                        q_offset=q_offset)
+        x = _ffn_residual(cfg, lp, x, o)
+    x = apply_norm(cfg, params["ln_final"], x)
+    return _unembed(cfg, params, x), cache
+
+
+def lm_decode(cfg: ModelConfig, params, cache: KVCache, tokens, positions):
+    """tokens (B,), positions (B,) -> (logits (B, V) float32, cache)."""
+    logits, cache = lm_step(cfg, params, cache, tokens[:, None],
+                            positions[:, None])
+    return logits[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -99,6 +99,8 @@ sys.meta_path.insert(0, _Block())
 import repro_torch.engine.torch_runner
 import repro_torch.launch.serve
 import repro_torch.kernels.ops
+import repro_torch.kernels.flash_attention
+import repro_torch.models.transformer
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

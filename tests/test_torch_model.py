@@ -1,9 +1,12 @@
-"""The port's paged model path on the CPU against the JAX package.
+"""The port's model paths on the CPU against the JAX package: the paged
+path on ``llama3.2-1b``, the dense-cache path (``lm_forward``, chunked
+``lm_step``, ``lm_decode``) on ``gemma2-27b`` and ``llama3.2-1b``.
 
-Weights come from ``repro.models.model_zoo.init`` on ``llama3.2-1b``
-``.reduced()`` and are carried across by ``repro_torch.models.convert``;
-every other input is drawn with numpy and handed to both packages. Logits
-and non-scratch pool pages agree within 1e-4 (XLA and ATen sum in other
+Weights come from ``repro.models.model_zoo.init`` on the ``.reduced()``
+configs (gemma2's post norms and tied embeddings included) and are carried
+across by ``repro_torch.models.convert``; every other input is drawn with
+numpy and handed to both packages. Logits, real rows only, and
+non-scratch cache positions agree within 1e-4 (XLA and ATen sum in other
 orders); layer functions within 2e-5 in float32 and 3e-2 in bfloat16.
 """
 import jax
@@ -24,14 +27,26 @@ from repro_torch.models.convert import params_from_numpy
 ATOL = 1e-4
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = get_config("llama3.2-1b").reduced()
-    jcfg = jget_config("llama3.2-1b").reduced()
+def _load(arch):
+    cfg = get_config(arch).reduced()
+    jcfg = jget_config(arch).reduced()
     jparams = model_zoo.init(jcfg, jax.random.PRNGKey(0), jnp.float32)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
                                 dtype=torch.float32)
     return cfg, jcfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _load("llama3.2-1b")
+
+
+DENSE_ARCHS = ["gemma2-27b", "llama3.2-1b"]
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense_model(request):
+    return _load(request.param)
 
 
 def _np(x):
@@ -226,6 +241,144 @@ def test_lm_mixed_paged_matches_jax(model):
     _assert_pools(jc, tc, scratch)
 
 
+# ---------------------------------------------------------------------------
+# dense-cache model functions
+# ---------------------------------------------------------------------------
+
+def test_lm_forward_and_prefill_match_jax(dense_model):
+    cfg, jcfg, jparams, tparams = dense_model
+    if cfg.sliding_window is not None:
+        assert cfg.post_sublayer_norm and cfg.tie_embeddings
+        assert "lm_head" not in tparams
+    toks = np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (2, 90)).astype(np.int32)   # past gemma2's window
+    jl = jtf.lm_forward(jcfg, jparams, jnp.asarray(toks))
+    tl = ttf.lm_forward(cfg, tparams, torch.from_numpy(toks))
+    assert tl.dtype == torch.float32 and tl.shape == (2, 90, cfg.vocab_size)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=ATOL)
+    jlast, jc = jtf.lm_prefill(jcfg, jparams, jnp.asarray(toks))
+    tlast, tc = ttf.lm_prefill(cfg, tparams, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(tlast), np.asarray(jlast), atol=ATOL)
+    np.testing.assert_allclose(_np(tc.k), np.asarray(jc.k), atol=ATOL)
+    np.testing.assert_allclose(_np(tc.v), np.asarray(jc.v), atol=ATOL)
+
+
+def _dense_caches(cfg, B, Smax, seed):
+    rng = np.random.default_rng(seed)
+    shp = (cfg.n_layers, B, Smax, cfg.n_kv_heads, cfg.head_dim_)
+    k = rng.standard_normal(shp, np.float32) * 0.5
+    v = rng.standard_normal(shp, np.float32) * 0.5
+    return (jtf.KVCache(jnp.asarray(k), jnp.asarray(v)),
+            ttf.KVCache(torch.from_numpy(k.copy()), torch.from_numpy(v.copy())))
+
+
+def _assert_dense(jc, tc, Smax):
+    """Non-scratch positions only: padded lanes scatter to Smax - 1 in an
+    unordered way in both frameworks."""
+    for j, t in ((jc.k, tc.k), (jc.v, tc.v)):
+        np.testing.assert_allclose(_np(t[:, :, :Smax - 1]),
+                                   np.asarray(j[:, :, :Smax - 1]), atol=ATOL)
+
+
+def test_lm_step_chunked_prefill_matches_jax(dense_model):
+    """One sequence in chunks as the dense layout runs them: a full
+    chunk, then ragged chunks whose padded lanes park at ``Smax - 1``, the
+    last one past gemma2's 64-token window and running past the cache's
+    end (start + bucket > Smax)."""
+    cfg, jcfg, jparams, tparams = dense_model
+    Smax = 160
+    jc, tc = _dense_caches(cfg, 1, Smax, 6)
+    rng = np.random.default_rng(7)
+    for start, n, lane in ((0, 64, 64), (64, 20, 32), (84, 60, 64),
+                           (144, 9, 32)):
+        toks = np.zeros((1, lane), np.int32)
+        toks[0, :n] = rng.integers(1, cfg.vocab_size, n)
+        pos = np.arange(start, start + lane, dtype=np.int32)
+        pos[n:] = Smax - 1
+        jl, jc = jtf.lm_step(jcfg, jparams, jc, jnp.asarray(toks),
+                             jnp.asarray(pos[None]))
+        tl, tc = ttf.lm_step(cfg, tparams, tc, torch.from_numpy(toks),
+                             q_offset=start, n_real=n)
+        np.testing.assert_allclose(_np(tl[:, :n]), np.asarray(jl[:, :n]),
+                                   atol=ATOL)
+        assert torch.isfinite(tl).all()
+        _assert_dense(jc, tc, Smax)
+
+
+def test_lm_decode_matches_jax(dense_model):
+    """Every slot steps at its own position (one past gemma2's window,
+    one short, one parked at the scratch position as an idle lane)."""
+    cfg, jcfg, jparams, tparams = dense_model
+    Smax = 128
+    jc, tc = _dense_caches(cfg, 3, Smax, 8)
+    toks = np.array([11, 23, 0], np.int32)
+    for step in range(2):
+        pos = np.array([100 + step, 7 + step, Smax - 1], np.int32)
+        jl, jc = jtf.lm_decode(jcfg, jparams, jc, jnp.asarray(toks),
+                               jnp.asarray(pos))
+        tl, tc = ttf.lm_decode(cfg, tparams, tc, torch.from_numpy(toks),
+                               torch.from_numpy(pos))
+        assert tl.shape == (3, cfg.vocab_size)
+        np.testing.assert_allclose(_np(tl[:2]), np.asarray(jl[:2]),
+                                   atol=ATOL)
+        _assert_dense(jc, tc, Smax)
+        toks = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+        assert torch.argmax(tl[:2], dim=-1).tolist() == toks[:2].tolist()
+
+
+def test_lm_step_chunk_contract(model):
+    """A chunk is one sequence whose positions come from its host-side
+    start alone; anything else raises instead of running some other
+    attention."""
+    cfg, _jcfg, _jparams, tparams = model
+    cache = ttf.KVCache.zeros(cfg, 2, 64, torch.float32)
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    pos = torch.arange(8, dtype=torch.int32).expand(2, 8)
+    with pytest.raises(ValueError, match="one sequence"):
+        ttf.lm_step(cfg, tparams, cache, toks, q_offset=0)
+    one = ttf.KVCache(cache.k[:, :1], cache.v[:, :1])
+    with pytest.raises(ValueError, match="q_offset"):
+        ttf.lm_step(cfg, tparams, one, toks[:1], pos[:1])
+    with pytest.raises(ValueError, match="no positions"):
+        ttf.lm_step(cfg, tparams, one, toks[:1], pos[:1], q_offset=0)
+    # padded lanes need the scratch position: real rows stop below it
+    with pytest.raises(ValueError, match="do not fit below 63"):
+        ttf.lm_step(cfg, tparams, one, toks[:1], q_offset=60, n_real=4)
+    with pytest.raises(ValueError, match="do not fit"):
+        ttf.lm_step(cfg, tparams, one, toks[:1], q_offset=0, n_real=0)
+    _, c = ttf.lm_step(cfg, tparams, one, toks[:1], q_offset=56)
+    assert c.k.abs().sum() > 0                        # a full chunk fits
+
+
+def test_dense_attention_matches_jax():
+    """``layers.attention`` (the decode step's plain attention), blocked
+    over q_chunk, with the gemma2 toggle on and off."""
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((2, 8, 4, 32), np.float32)
+    k = rng.standard_normal((2, 40, 2, 32), np.float32)
+    v = rng.standard_normal((2, 40, 2, 32), np.float32)
+    q_pos = np.stack([np.arange(20, 28), np.arange(30, 38)]).astype(np.int32)
+    kv_pos = np.tile(np.arange(40, dtype=np.int32), (2, 1))
+    kv_valid = kv_pos <= q_pos.max(axis=1, keepdims=True)
+    for is_local, q_chunk in ((True, 4), (False, 2048)):
+        kw = dict(causal=True, window=6, softcap=50.0, q_chunk=q_chunk)
+        want = jL.attention(*(jnp.asarray(a) for a in (q, k, v, q_pos,
+                                                        kv_pos)),
+                            kv_valid=jnp.asarray(kv_valid),
+                            is_local=jnp.float32(is_local), **kw)
+        got = tL.attention(*(torch.from_numpy(a) for a in (q, k, v, q_pos,
+                                                           kv_pos)),
+                           kv_valid=torch.from_numpy(kv_valid),
+                           is_local=is_local, **kw)
+        np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
+    m_j = jL.attention_scores_mask(jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                                   causal=True, window=6)
+    m_t = tL.attention_scores_mask(torch.from_numpy(q_pos),
+                                   torch.from_numpy(kv_pos), causal=True,
+                                   window=6)
+    assert np.array_equal(m_t.numpy(), np.asarray(m_j))
+
+
 def test_moe_family_is_not_ported():
     cfg = get_config("granite-moe-3b-a800m").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -240,3 +393,21 @@ def test_init_lm_shapes_match_jax(model):
     # same scales: the embedding is drawn with std d_model ** -0.5
     std = float(mine["embed"].std())
     assert abs(std - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
+
+
+def test_init_lm_draws_in_slices(monkeypatch):
+    """Full-width weights are drawn slice by slice straight into the
+    stacked tensor (no whole-tensor f32 temporary); the slices keep the
+    scale and fill every row."""
+    monkeypatch.setattr(ttf, "_DRAW_ELEMS", 3000)
+    cfg = get_config("gemma2-27b").reduced()
+    p = ttf.init_lm(cfg, torch.Generator().manual_seed(1), torch.bfloat16)
+    w = p["layers"]["mlp"]["w_up"]
+    assert w.dtype == torch.bfloat16
+    assert w.shape == (cfg.n_layers, cfg.d_model, cfg.d_ff)
+    rows = w.float().reshape(cfg.n_layers, -1)
+    stds = rows.std(dim=1)
+    assert torch.all((stds - cfg.d_model ** -0.5).abs()
+                     < 0.1 * cfg.d_model ** -0.5)
+    assert not torch.equal(rows[0], rows[1])
+    assert "lm_head" not in p and "ln_post_attn" in p["layers"]

@@ -1,9 +1,11 @@
 """``TorchBackend`` on the CPU against ``JaxBackend`` in the same Engine
 scenarios: the greedy tokens must be identical.
 
-Both backends serve ``llama3.2-1b`` ``.reduced()`` in float32 with the same
+Both backends serve a ``.reduced()`` config in float32 with the same
 weights (the JAX backend's, carried across by ``repro_torch.models.
-convert``). Each scenario is one of the live scenarios of
+convert``): ``llama3.2-1b`` on the paged layout, ``gemma2-27b`` on the
+dense slot layout (sliding window and softcaps: both backends choose it).
+Each scenario is one of the live scenarios of
 ``tests/test_paged_runner.py`` / ``tests/test_continuous_batching.py``,
 built with the reference's engine for the JAX backend and with the port's
 own copy of the engine for the port.
@@ -34,14 +36,18 @@ from repro_torch.models.convert import params_from_numpy
 ARCH = "llama3.2-1b"
 
 
-@pytest.fixture(scope="module")
-def jax_backend_params():
+def _jax_params(arch):
     """The weights JaxBackend(seed=0) draws (``model_zoo.init`` with
     ``PRNGKey(0)`` in float32), as numpy."""
     from repro.models import model_zoo
-    params = model_zoo.init(jget_config(ARCH).reduced(),
+    params = model_zoo.init(jget_config(arch).reduced(),
                             jax.random.PRNGKey(0), jax.numpy.float32)
     return jax.tree.map(np.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def jax_backend_params():
+    return _jax_params(ARCH)
 
 
 # the two engines' vocabularies, so one scenario builder serves both
@@ -113,19 +119,20 @@ def _run(m, backend, sessions, *, scheduler="mixed", offload=None,
     return {s.sid: list(s.meta["generated"]) for s in finished}, eng
 
 
-def _torch_backend(params, spool=None):
-    return TorchBackend(get_config(ARCH).reduced(), max_slots=4, max_len=256,
-                        device="cpu", dtype=torch.float32,
+def _torch_backend(params, spool=None, arch=ARCH, layout="paged"):
+    return TorchBackend(get_config(arch).reduced(), layout=layout,
+                        max_slots=4, max_len=256, device="cpu",
+                        dtype=torch.float32,
                         params=params_from_numpy(params, dtype=torch.float32),
                         disk_spool=spool and f"{spool}/torch")
 
 
-def _both(params, build, spool=None, **kw):
-    jb = JaxBackend(jget_config(ARCH).reduced(), max_slots=4, max_len=256,
+def _both(params, build, spool=None, arch=ARCH, **kw):
+    jb = JaxBackend(jget_config(arch).reduced(), max_slots=4, max_len=256,
                     disk_spool=spool and f"{spool}/jax")
     jtok, _ = _run(_JAX, jb, build(_JAX), **kw)
-    ttok, eng = _run(_TORCH, _torch_backend(params, spool), build(_TORCH),
-                     **kw)
+    ttok, eng = _run(_TORCH, _torch_backend(params, spool, arch),
+                     build(_TORCH), **kw)
     return jtok, ttok, eng
 
 
@@ -226,8 +233,87 @@ def test_torch_backend_needs_a_card_unless_cpu(monkeypatch):
 
 
 def test_unported_layouts_raise():
-    cfg = get_config(ARCH).reduced()
+    """The MoE family is not ported yet; an unknown layout is refused."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBackend(cfg, layout="dense", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBackend(get_config("gemma2-27b").reduced(), device="cpu")
+        TorchBackend(get_config("granite-moe-3b-a800m").reduced(),
+                     device="cpu")
+    with pytest.raises(ValueError, match="layout"):
+        TorchBackend(get_config(ARCH).reduced(), layout="slab",
+                     device="cpu")
+
+
+def test_dense_layout_choice_and_flags():
+    """As in JaxBackend: ``layout="paged"`` on a config the paged kernels
+    reject (gemma2) becomes ``"dense"``, ``"dense"`` is taken for any
+    dense-family config, and the dense layout shares no prefix, needs no
+    last-token compute, swaps synchronously and has no swap stream."""
+    for cfg, layout in ((get_config("gemma2-27b").reduced(), "paged"),
+                        (get_config(ARCH).reduced(), "dense")):
+        b = TorchBackend(cfg, layout=layout, device="cpu",
+                         dtype=torch.float32, max_slots=2, max_len=80)
+        try:
+            assert b.layout == "dense"
+            assert not (b.supports_prefix_sharing
+                        or b.requires_last_token_compute
+                        or b.supports_async_swap)
+            assert b.swap_stream_stats() is None
+            assert b.kv_bytes_per_token() == \
+                2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 4
+        finally:
+            b.close()
+
+
+@pytest.mark.live
+def test_gemma2_dense_tokens_match_jax_with_forced_offload():
+    """gemma2 (window 64, softcaps, post norms) on the dense layout, two
+    rounds past the window with a forced whole-slot OFFLOAD at the tool
+    yield: the port emits exactly the JAX backend's greedy tokens, on the
+    round path (the dense layout has no fused mixed tick)."""
+    sids = [96101, 96102]
+    jtok, ttok, eng = _both(
+        _jax_params("gemma2-27b"),
+        lambda m: _family(m, sids, rounds=2, tail_chunks=2),
+        arch="gemma2-27b", offload="OFFLOAD", tools=True)
+    assert ttok == jtok and set(ttok) == set(sids)
+    assert eng.backend.layout == "dense"
+    st = eng.backend.dispatch_stats
+    assert st["mixed_calls"] == 0 and st["prefill_calls"] > 0
+    outs = [e for e in eng.bus.log if e.kind == tev.SWAP_OUT
+            and e.data.get("tier") == "host"]
+    assert outs, "offload path not exercised"
+    assert eng.prefix_hit_tokens == 0
+
+
+@pytest.mark.live
+def test_dense_layout_tokens_match_paged(jax_backend_params):
+    """The port's own dense layout (every member recomputes its context)
+    emits exactly the tokens of its paged layout (shared prefix pages),
+    as ``test_paged_dense_greedy_decode_parity_on_shared_family`` holds
+    for JAX."""
+    sids = [91101, 91102, 91103]
+    paged, _ = _run(_TORCH, _torch_backend(jax_backend_params),
+                    _family(_TORCH, sids))
+    dense, eng = _run(_TORCH, _torch_backend(jax_backend_params,
+                                             layout="dense"),
+                      _family(_TORCH, sids))
+    assert set(dense) == set(sids) and dense == paged
+    assert eng.backend.layout == "dense"
+    assert eng.backend.dispatch_stats["mixed_calls"] == 0
+
+
+def test_serve_live_gemma2_takes_the_dense_layout(monkeypatch):
+    """``serve_live(arch="gemma2-27b")`` serves through the dense layout
+    (here the reduced config on the CPU)."""
+    from repro_torch.launch import serve
+    built = []
+    orig = TorchBackend.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        built.append(self)
+    monkeypatch.setattr(TorchBackend, "__init__", spy)
+    finished = serve.serve_live(arch="gemma2-27b", policy="mars",
+                                n_sessions=1, device="cpu", verbose=False)
+    assert [b.layout for b in built] == ["dense"]
+    assert len(finished) == 1
+    assert len(finished[0].meta["generated"]) == 12 + 8 + 8

@@ -11,14 +11,21 @@ Phases, in order; any failure exits non-zero:
                 main-path shapes, in float32 (atol 2e-5) and bfloat16
                 (atol 3e-2 paged; flash 2e-2 times the output's largest
                 magnitude, capped at 2e-2); fused pool writes must be
-                exact; flash rows that see no key are not compared
+                exact; flash rows that see no key are not compared. wkv6:
+                test_wkv6_shapes at f32 atol 5e-4, strong decay at 1e-4
+                plus 1e-4 of the largest output, T = 1, a strided layout,
+                and the main-path prefill with bf16 r/k/v at 1e-5 of the
+                largest output
 4. model        llama3.2-1b .reduced(): lm_prefill_paged / lm_decode_paged /
                 lm_mixed_paged; gemma2-27b .reduced(): lm_forward, two
                 lm_step prefill chunks (the second ragged, past the window)
-                and lm_decode over slots at different positions. float32,
-                same weights, on the card (kernels) and on the CPU (plain
-                versions): logits and non-scratch cache within 1e-4, next
-                tokens equal
+                and lm_decode over slots at different positions; rwkv6-1.6b
+                .reduced(): rwkv_forward, rwkv_prefill, decode steps and a
+                forward resumed from the carried state. float32, same
+                weights, on the card (kernels) and on the CPU (plain
+                versions): logits and non-scratch cache within 1e-4 (rwkv6:
+                1e-4 times the largest magnitude, at least 1), next tokens
+                equal
 5. serve        TorchBackend with llama3.2-1b at full width in bf16 (paged
                 layout) under Engine(scheduler="mixed", policy "mars") with
                 real sleep tools: 8 sessions in two shared-prefix families,
@@ -27,10 +34,20 @@ Phases, in order; any failure exits non-zero:
                 read just after.
 6. timing       each kernel, its plain version and one PyTorch library call
                 (SDPA; flex_attention, compiled, for the softcapped
-                flash_attention) on the same main-path inputs (CUDA events,
-                warmed), and the bound from bytes and operations
+                flash_attention; none computes wkv6) on the same main-path
+                inputs (CUDA events, warmed), and the bound from bytes and
+                operations
 7. profile      device time by kernel over one full-width mixed iteration
-8. serve-dense  TorchBackend with gemma2-27b at full width in bf16 (dense
+8. serve-rwkv   rwkv6-1.6b at full width in bf16 through model_zoo: 8
+                sessions of 1,024-token prompts in one prefill, 16 greedy
+                decode steps, a 64-token tool output per session resumed
+                from the carried state, 16 more decode steps; wkv6 must
+                launch 24 x 34 times. Then, in f32 at B = 1: prefill(1,024)
+                plus a 64-token resume against prefill(1,088), within
+                1e-3 of the largest logit, same argmax
+9. profile      device time by kernel over one full-width rwkv6 prefill
+                (B 8, T 1,024) and one decode step: wkv6's share, idle share
+10. serve-dense TorchBackend with gemma2-27b at full width in bf16 (dense
                 slot layout, 4 slots of 6,144 tokens), same engine: 4
                 sessions (two 4,608-token prompts, past the 4,096 window;
                 two of 1,024), 3 rounds; then the same with every tool
@@ -38,7 +55,7 @@ Phases, in order; any failure exits non-zero:
                 zeroed after the backend is built (calibrate runs lm_step),
                 read after both runs: flash_attention must launch 46 times
                 per prefill call
-9. profile      device time by kernel over one full-width dense prefill
+11. profile     device time by kernel over one full-width dense prefill
                 chunk (C = 512 at q_offset 4,096) and one dense decode step
                 over 4 slots
 
@@ -74,12 +91,19 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_fused)
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
+from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
 F32_TOL, BF16_TOL, MODEL_TOL = 2e-5, 3e-2, 1e-4
 FLASH_BF16_TOL = 2e-2            # tests/test_kernels.py's own for this kernel
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+TF32_FLOPS = 495e12              # dense TF32 tensor-core peak (f32 work)
+F32_FLOPS = 67e12                # f32 outside the tensor cores
+WKV_F32_TOL, WKV_STRONG_TOL = 5e-4, 1e-4   # tests/test_kernels.py's own
+WKV_REL_TOL = 1e-5               # x the largest |output|, main-path bf16
 KERNELS = {
     "paged_attention_fused": dict(
         fn=paged_attention_fused,
@@ -97,9 +121,13 @@ KERNELS = {
         fn=flash_attention,
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:116"),
+    "wkv6": dict(
+        fn=wkv6, source="src/repro_torch/kernels/csrc/wkv6.cu",
+        replaces="src/repro/kernels/wkv6.py:70"),
 }
 MAIN_PATH = ("paged_attention_fused", "paged_flash_attention")
 DENSE_PATH = ("flash_attention",)
+RWKV_PATH = ("wkv6",)
 DEV = torch.device("cuda")
 
 
@@ -331,6 +359,77 @@ def _flash_sweeps(errs, gen, dtype):
             f"window {window}: max abs err {err:.3e} (tol {tol:.3e})")
 
 
+# (B, T, H, K, chunk) of test_wkv6_shapes
+WKV_SHAPES = [(2, 64, 2, 32, 32), (1, 128, 4, 64, 32), (2, 96, 1, 64, 16),
+              (1, 32, 2, 32, 8)]
+# the main path: 8 sessions' 1,024-token prompts at rwkv6-1.6b's full
+# width (H 32 = 2,048 / 64), and one decode step of those sessions
+WKV_PREFILL = dict(B=8, T=1024, H=32, K=64)
+WKV_DECODE = dict(B=8, T=1, H=32, K=64)
+
+
+def _wkv_inputs(gen, B, T, H, K, dtype, *, model_like=False):
+    """r/k/v in ``dtype``, w/u/state in f32. The test distributions
+    (tests/test_kernels.py), or with ``model_like`` those the full-width
+    model's init gives the recurrence: r/k/v ~ N(0, 1), decays
+    exp(-exp(-6 + 0.6 N)) (about 0.9975, a long memory)."""
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV)
+    scale = 1.0 if model_like else 0.5
+    r, k, v = (rn(B, T, H, K).mul_(scale).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rn(B, T, H, K) * 0.6 - 6.0) if model_like
+                  else -torch.exp(rn(B, T, H, K) * 0.5 - 1.0))
+    return r, k, v, w, rn(H, K) * 0.3, rn(B, H, K, K) * 0.1
+
+
+def _check_wkv(errs, args, chunk, tol, what, *, rtol=0.0):
+    o, sT = wkv6(*args, chunk=chunk)
+    want_o, want_s = ref.wkv6_ref(*args)
+    if not (torch.isfinite(o).all() and torch.isfinite(sT).all()):
+        raise AssertionError(f"wkv6 {what}: non-finite output")
+    dtype = args[0].dtype
+    for got, want, part in ((o, want_o, "o"), (sT, want_s, "state")):
+        t = tol + rtol * want.abs().max().item()
+        errs.check("wkv6", dtype, got, want, t, f"{what} {part} tol={t:.3e}")
+
+
+def _wkv_sweeps(errs, gen):
+    """wkv6 against its plain version: test_wkv6_shapes (f32, atol 5e-4),
+    the strong-decay case (w = 0.25; 1e-4 plus 1e-4 of the largest output,
+    the JAX test's rtol/atol), single decode steps,
+    a strided layout, and the main-path prefill with bf16 r/k/v. There
+    both versions upcast the same bf16 values and differ only in the order
+    of f32 sums, over a state that grows to ~60 and outputs of ~600; the
+    tolerance is 1e-5 of the largest output, since an absolute one would
+    mean nothing at that scale."""
+    f32 = torch.float32
+    for B, T, H, K, chunk in WKV_SHAPES:
+        _check_wkv(errs, _wkv_inputs(gen, B, T, H, K, f32), chunk,
+                   WKV_F32_TOL, f"B={B} T={T} H={H} K={K} chunk={chunk}")
+    B, T, H, K = 1, 64, 2, 32
+    strong = (torch.full((B, T, H, K), 0.3, device=DEV),
+              torch.full((B, T, H, K), 0.3, device=DEV),
+              torch.ones((B, T, H, K), device=DEV),
+              torch.full((B, T, H, K), 0.25, device=DEV),
+              torch.zeros((H, K), device=DEV),
+              torch.zeros((B, H, K, K), device=DEV))
+    _check_wkv(errs, strong, 32, WKV_STRONG_TOL, "strong decay",
+               rtol=WKV_STRONG_TOL)
+    for K in (32, 64):
+        _check_wkv(errs, _wkv_inputs(gen, 3, 1, 4, K, f32), 32, WKV_F32_TOL,
+                   f"T=1 K={K}")
+    # r/k/v/w as (B, H, T, K) tensors seen through (B, T, H, K) views
+    r, k, v, w, u, s0 = _wkv_inputs(gen, 2, 64, 3, 64, f32)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (r, k, v, w)]
+    _check_wkv(errs, (*views, u, s0), 32, WKV_F32_TOL, "strided")
+    main = _wkv_inputs(gen, *WKV_PREFILL.values(), torch.bfloat16,
+                       model_like=True)
+    _check_wkv(errs, main, 32, 0.0, "main-path prefill", rtol=WKV_REL_TOL)
+    log(f"[kernels] wkv6 bf16 main-path prefill {WKV_PREFILL}: max abs err "
+        f"{errs.max[('wkv6', 'bfloat16')]:.3e}")
+
+
 def phase_kernels() -> Errors:
     errs = Errors()
     gen = torch.Generator(device=DEV).manual_seed(7)
@@ -358,6 +457,7 @@ def phase_kernels() -> Errors:
                            C, kv_len=[kv], table_ids=80)
         _check_shared_prefix_rows(dtype, gen)
         _flash_sweeps(errs, gen, dtype)
+    _wkv_sweeps(errs, gen)
     torch.cuda.synchronize()
     for (name, dt), err in sorted(errs.max.items()):
         log(f"[kernels] {name:22s} {dt:9s} max_abs_err={err:.3e}")
@@ -368,10 +468,14 @@ def phase_kernels() -> Errors:
 # 4. model parity: card (kernels) vs CPU (plain versions)
 # ---------------------------------------------------------------------------
 
-def _to_device(tree):
+def _tree_map(fn, tree):
     if isinstance(tree, dict):
-        return {k: _to_device(v) for k, v in tree.items()}
-    return tree.to(DEV)
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _to_device(tree):
+    return _tree_map(lambda t: t.to(DEV), tree)
 
 
 def phase_model() -> None:
@@ -527,6 +631,67 @@ def phase_model_dense() -> None:
         f"err {worst:.3e} (tol {MODEL_TOL}); next tokens equal")
 
 
+def phase_model_rwkv() -> None:
+    """rwkv6-1.6b .reduced() (H 4, K 32): card (wkv6 kernel) vs CPU (plain
+    recurrence), f32, same weights: forward, prefill, three decode steps
+    and a forward resumed from the carried state. Errors are taken
+    relative to the tensor's largest magnitude (at least 1): the wkv state
+    reaches tens and the per-head group norm amplifies f32 rounding where
+    a head's output has little variance, as in tests/test_torch_rwkv.py."""
+    cfg = get_config("rwkv6-1.6b").reduced()
+    params = model_zoo.init(cfg, 0, torch.float32, device="cpu")
+    dparams = _to_device(params)
+    rng = np.random.default_rng(5)
+    worst = 0.0
+
+    def agree(a, b, what):
+        nonlocal worst
+        scale = max(1.0, b.float().abs().max().item())
+        err = (a.float().cpu() - b.float()).abs().max().item() / scale
+        worst = max(worst, err)
+        if not err <= MODEL_TOL:
+            raise AssertionError(f"rwkv model {what}: max abs err {err} "
+                                 f"of the magnitude {scale}")
+
+    def states(g, c, what):
+        for f in ("att_shift", "ffn_shift", "wkv"):
+            agree(getattr(g, f), getattr(c, f), f"{what} {f}")
+
+    def same_next(c, g, what):
+        if torch.argmax(c, -1).tolist() != torch.argmax(g, -1).cpu().tolist():
+            raise AssertionError(f"rwkv model {what}: next tokens differ")
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                            .astype(np.int32))
+    lc = rwkv6.rwkv_forward(cfg, params, toks)
+    lg = rwkv6.rwkv_forward(cfg, dparams, toks.to(DEV))
+    agree(lg, lc, "rwkv_forward logits")
+    lc, sc = rwkv6.rwkv_prefill(cfg, params, toks)
+    lg, sg = rwkv6.rwkv_prefill(cfg, dparams, toks.to(DEV))
+    agree(lg, lc, "rwkv_prefill logits")
+    states(sg, sc, "rwkv_prefill")
+    same_next(lc, lg, "rwkv_prefill")
+    for step in range(3):
+        nxt = torch.argmax(lc, -1).to(torch.int32)
+        lc, sc = rwkv6.rwkv_decode(cfg, params, sc, nxt)
+        lg, sg = rwkv6.rwkv_decode(cfg, dparams, sg, nxt.to(DEV))
+        agree(lg, lc, f"rwkv_decode {step} logits")
+        states(sg, sc, f"rwkv_decode {step}")
+        same_next(lc, lg, f"rwkv_decode {step}")
+    more = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                            .astype(np.int32))
+    lc, sc = rwkv6.rwkv_forward(cfg, params, more, state=sc,
+                                return_state=True)
+    lg, sg = rwkv6.rwkv_forward(cfg, dparams, more.to(DEV), state=sg,
+                                return_state=True)
+    agree(lg, lc, "resumed rwkv_forward logits")
+    states(sg, sc, "resumed rwkv_forward")
+    same_next(lc[:, -1], lg[:, -1], "resumed rwkv_forward")
+    log(f"[model] rwkv6-1.6b reduced f32: card vs cpu max abs err "
+        f"{worst:.3e} of the largest magnitude (tol {MODEL_TOL}); next "
+        f"tokens equal")
+
+
 # ---------------------------------------------------------------------------
 # 5. serve at full width
 # ---------------------------------------------------------------------------
@@ -646,6 +811,125 @@ def phase_serve():
     return launches
 
 
+RWKV_SERVE = dict(sessions=8, prompt=1024, decode=16, tool=64)
+
+
+def _greedy(cfg, params, last, state, steps, start):
+    """``steps`` greedy decode steps; returns (last logits, state, wall ms
+    per step). Every step's logits must be finite."""
+    ms = []
+    for i in range(steps):
+        tok = torch.argmax(last, -1).to(torch.int32)
+        pos = torch.full_like(tok, start + i)
+        t0 = time.monotonic()
+        last, state = model_zoo.decode(cfg, params, state, tok, pos)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        _finite(last, f"decode step {start + i}")
+    return last, state, ms
+
+
+def _finite(x, what):
+    if not torch.isfinite(x).all():
+        raise AssertionError(f"serve-rwkv: non-finite logits in {what}")
+
+
+def phase_serve_rwkv():
+    """rwkv6-1.6b at full width in bf16 through the port's model_zoo: one
+    prefill of 8 sessions' 1,024-token prompts, 16 greedy decode steps, a
+    64-token tool output per session resumed from the carried state, 16
+    more steps. Every forward call launches wkv6 once per layer. Then the
+    carried-state check in f32 at B = 1. Returns the launches and the
+    weights (the rwkv profile runs on them)."""
+    cfg = get_config("rwkv6-1.6b")
+    S = RWKV_SERVE
+    B, T, n_dec = S["sessions"], S["prompt"], S["decode"]
+    t0 = time.monotonic()
+    params = model_zoo.init(cfg, 0, torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
+                               .astype(np.int32)).to(DEV)
+    tools = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S["tool"]))
+                             .astype(np.int32)).to(DEV)
+    H = cfg.d_model // cfg.rwkv.head_size
+    log(f"[serve-rwkv] rwkv6-1.6b full width (L={cfg.n_layers} "
+        f"d={cfg.d_model} H={H} K={cfg.rwkv.head_size} d_ff={cfg.d_ff} "
+        f"V={cfg.vocab_size}, {cfg.param_count() / 1e9:.3f} B params) bf16:"
+        f" set-up {time.monotonic() - t0:.2f}s, device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+    t0 = time.monotonic()
+    last, state = model_zoo.prefill(cfg, params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    _finite(last, "prefill")
+    last, state, dec = _greedy(cfg, params, last, state, n_dec, T)
+    t0 = time.monotonic()
+    logits, state = rwkv6.rwkv_forward(cfg, params, tools, state=state,
+                                       return_state=True)
+    torch.cuda.synchronize()
+    resume_ms = (time.monotonic() - t0) * 1e3
+    _finite(logits, "resume")
+    last, state, dec2 = _greedy(cfg, params, logits[:, -1], state, n_dec,
+                                T + n_dec + S["tool"])
+    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    calls = 2 + 2 * n_dec
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.median(dec + dec2))
+    log(f"[serve-rwkv] on {torch.cuda.get_device_name(0)}: prefill "
+        f"{B}x{T} {prefill_ms:.2f} ms, resume {B}x{S['tool']} "
+        f"{resume_ms:.2f} ms, decode step median {step_ms:.3f} ms "
+        f"(min {min(dec + dec2):.3f}, max {max(dec + dec2):.3f}) = "
+        f"{B / step_ms * 1e3:.1f} tokens/s; peak device memory {peak:.2f} "
+        f"GB")
+    log(f"[serve-rwkv] kernel launches: {launches} ({calls} forward calls "
+        f"x {cfg.n_layers} layers = {calls * cfg.n_layers})")
+    if launches["wkv6"] != calls * cfg.n_layers:
+        raise AssertionError("serve-rwkv: wkv6 launches != layers x calls")
+    for name, n in launches.items():
+        if name not in RWKV_PATH and n:
+            raise AssertionError(f"serve-rwkv: {name} ran")
+    _carried_state_check(cfg, params, prompts[:1], tools[:1])
+    return launches, params
+
+
+CARRY_TOL = 1e-3                 # x the largest |logit| (at least 1)
+
+
+def _carried_state_check(cfg, params, prompt, tool):
+    """f32, B = 1: prefill(prompt) then a forward resumed from its state
+    over ``tool`` gives the logits of one prefill over both, at every
+    resumed position, and the same last argmax. MARS keeps an rwkv
+    session's state across a tool call on this property. The two runs
+    differ only in the row counts cuBLAS sees, so they sum in other
+    orders, and 24 layers amplify that: the same recompute at B = 2 (a
+    duplicated row) measures this noise floor, logged beside the error.
+    Tolerance 1e-3 of the largest logit; a state that is not carried
+    (zeroed, stale, another session's) is off by the logits' own scale."""
+    p32 = _tree_map(lambda t: t.float(), params)
+    _, st = rwkv6.rwkv_prefill(cfg, p32, prompt)
+    resumed = rwkv6.rwkv_forward(cfg, p32, tool, state=st)
+    seq = torch.cat([prompt, tool], 1)
+    n = prompt.shape[1]
+    want = rwkv6.rwkv_forward(cfg, p32, seq)[:, n:]
+    twin = rwkv6.rwkv_forward(cfg, p32, torch.cat([seq, seq]))[:1, n:]
+    err = (resumed - want).abs().max().item()
+    noise = (twin - want).abs().max().item()
+    tol = CARRY_TOL * max(1.0, want.abs().max().item())
+    same = bool(torch.equal(torch.argmax(resumed[:, -1], -1),
+                            torch.argmax(want[:, -1], -1)))
+    log(f"[serve-rwkv] carried state, f32 B=1: prefill({n}) + "
+        f"resume({tool.shape[1]}) vs prefill({seq.shape[1]}): max abs err "
+        f"{err:.3e} over the {tool.shape[1]} resumed positions (tol "
+        f"{tol:.3e}; noise floor, the same prefill at B=2: {noise:.3e}), "
+        f"last argmax equal: {same}")
+    if not err <= tol or not same:
+        raise AssertionError("serve-rwkv: carried state != recompute")
+
+
 DENSE_SERVE = dict(prompts=(4608, 4608, 1024, 1024), decode=16, slots=4,
                    max_len=6144)
 
@@ -744,6 +1028,26 @@ def time_ms(fn, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, key: str, iters: int = 50) -> float:
+    """Device time per call of the kernels whose name holds ``key``, from
+    the profiler's CUDA trace (CUPTI), warmed. For a launch shorter than
+    its wrapper's host cost, CUDA events around a Python loop time the
+    host's enqueue instead of the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if key in e.key)
+    if total <= 0:
+        raise AssertionError(f"no device time for {key} in the trace")
+    return total / iters / 1e3
 
 
 def _bound(nbytes: float, flops: float, peak: float):
@@ -959,6 +1263,55 @@ def phase_flash_timing(errs: Errors):
         "launches_per_chunk": get_config("gemma2-27b").n_layers}
 
 
+def _wkv_bound(B, T, H, K, item):
+    """r/k/v read once in the model type, w read and o written in f32, u
+    read, the state read and written once in f32; about 5*K^2 flops per
+    (b, h, t), f32 work priced at the TF32 tensor-core peak (a chunked form
+    runs it as matrix products)."""
+    n = B * T * H * K
+    nbytes = 3.0 * n * item + 2.0 * n * 4 + H * K * 4 + 2.0 * B * H * K * K * 4
+    flops = 5.0 * B * T * H * K * K
+    return nbytes, flops
+
+
+def phase_wkv_timing(errs: Errors):
+    """wkv6 at the main path's prefill (B 8, T 1,024, H 32, K 64, bf16 r/k/v)
+    and decode (B 8, T 1) shapes with the model's decay distribution. The
+    kernel's ms is its device time from the profiler; ``ms_events`` is the
+    CUDA-event time of back-to-back wrapper calls, which at the decode
+    shape is the host's enqueue rate. No PyTorch call computes WKV6, so
+    there is no library time. The row's ms, plain_ms and bound_ms are the
+    prefill's; ``per_shape`` holds both."""
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    shapes = {}
+    for label, shape in (("prefill", WKV_PREFILL), ("decode", WKV_DECODE)):
+        args = _wkv_inputs(gen, *shape.values(), torch.bfloat16,
+                           model_like=True)
+        nbytes, flops = _wkv_bound(*shape.values(), 2)
+        bound, by = _bound(nbytes, flops, TF32_FLOPS)
+        k_ms = device_ms(lambda: wkv6(*args), "wkv6_kernel")
+        e_ms = time_ms(lambda: wkv6(*args))
+        p_ms = time_ms(lambda: ref.wkv6_ref(*args),
+                       iters=5 if shape["T"] > 1 else 50)
+        shapes[label] = dict(ms=k_ms, ms_events=e_ms, plain_ms=p_ms,
+                             bound_ms=bound, bound_by=by, shape=shape)
+        log(f"[timing] wkv6 {label:7s} {shape}: kernel {k_ms:.4f} ms "
+            f"(events {e_ms:.4f} ms)  plain {p_ms:.4f} ms  bound "
+            f"{bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+            f"{flops / 1e9:.3f} GFLOP; f32 CUDA cores "
+            f"{flops / F32_FLOPS * 1e3:.4f} ms)  bound/kernel "
+            f"{bound / k_ms:.3f}")
+    pre = shapes["prefill"]
+    return {
+        "name": "wkv6", "route": "cuda", "source": KERNELS["wkv6"]["source"],
+        "replaces": KERNELS["wkv6"]["replaces"], "launches": None,
+        "max_abs_err": max(v for (n, dt), v in errs.max.items()
+                           if n == "wkv6"),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": None, "per_shape": shapes}
+
+
 # ---------------------------------------------------------------------------
 # 7. profile one full-width mixed iteration
 # ---------------------------------------------------------------------------
@@ -984,10 +1337,11 @@ def phase_profile():
              lambda: tf.lm_mixed_paged(cfg, params, cache, *args))
 
 
-def _profile(label: str, fn, traced: int = 3):
+def _profile(label: str, fn, traced: int = 3, focus: str = ""):
     """Wall time per call with the profiler off (5 calls after 2 warm-up
     calls) and device time by kernel over ``traced`` profiled calls; logs
-    the idle share and the top kernels. Returns (wall_ms, device_ms)."""
+    the idle share, the top kernels and the device-time share of the
+    kernels whose name holds ``focus``. Returns (wall_ms, device_ms)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
@@ -1014,7 +1368,28 @@ def _profile(label: str, fn, traced: int = 3):
             f"ms/iter x{e.count // traced:4d}  {e.key[:90]}")
     if not evs:
         log("[profile] no device time in the trace: not measured")
+    elif focus:
+        mine = sum(e.device_time_total for e in evs if focus in e.key) / (
+            traced * 1e3)
+        log(f"[profile]   {focus}: {mine:.3f} ms/iter, share of device time "
+            f"{mine / total:.3f}, of wall time {mine / wall_ms:.3f}")
     return wall_ms, total
+
+
+def phase_profile_rwkv(params) -> None:
+    """One full-width rwkv6 prefill (B 8, T 1,024) and one decode step of
+    the 8 sessions, on the serve's weights."""
+    cfg = get_config("rwkv6-1.6b")
+    B, T = RWKV_SERVE["sessions"], RWKV_SERVE["prompt"]
+    toks = torch.zeros((B, T), dtype=torch.int32, device=DEV)
+    _profile(f"rwkv6 prefill B={B} T={T} ({cfg.n_layers} wkv6 launches)",
+             lambda: model_zoo.prefill(cfg, params, {"tokens": toks}),
+             focus="wkv6")
+    _, state = model_zoo.prefill(cfg, params, {"tokens": toks})
+    tok = torch.zeros((B,), dtype=torch.int32, device=DEV)
+    _profile(f"rwkv6 decode step B={B}",
+             lambda: model_zoo.decode(cfg, params, state, tok, tok),
+             focus="wkv6")
 
 
 def phase_profile_dense(backend) -> None:
@@ -1091,6 +1466,7 @@ def main() -> int:
     t0 = time.monotonic()
     phase_model()
     phase_model_dense()
+    phase_model_rwkv()
     log(f"[model] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     launches = phase_serve()
@@ -1098,11 +1474,21 @@ def main() -> int:
     t0 = time.monotonic()
     rows = phase_timing(errs, launches)
     flash_row = phase_flash_timing(errs)
+    wkv_row = phase_wkv_timing(errs)
     log(f"[timing] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     phase_profile()
     log(f"[profile] done in {time.monotonic() - t0:.2f}s")
     gc.collect()                     # the llama weights and pools go first
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    rwkv_launches, rwkv_params = phase_serve_rwkv()
+    log(f"[serve-rwkv] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    phase_profile_rwkv(rwkv_params)
+    log(f"[profile-rwkv] done in {time.monotonic() - t0:.2f}s")
+    del rwkv_params                  # free the card for gemma2-27b
+    gc.collect()
     torch.cuda.empty_cache()
     t0 = time.monotonic()
     dense_launches, backend = phase_serve_dense()
@@ -1114,7 +1500,8 @@ def main() -> int:
         backend.close()
     log(f"[profile-dense] done in {time.monotonic() - t0:.2f}s")
     flash_row["launches"] = dense_launches["flash_attention"]
-    rows.append(flash_row)
+    wkv_row["launches"] = rwkv_launches["wkv6"]
+    rows += [flash_row, wkv_row]
     log(f"[done] {time.monotonic() - t_all:.2f}s; card: {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

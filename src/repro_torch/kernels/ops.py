@@ -1,4 +1,4 @@
-"""Public kernel entry points of the attention paths.
+"""Public kernel entry points of the attention paths and the WKV6 time mix.
 
 Model code calls these, never a kernel wrapper directly. Dispatch is by
 the tensor's device alone: a CPU tensor runs the plain PyTorch version, a
@@ -9,6 +9,7 @@ and no environment switch.
     prefill_attention(...) gather-free paged prefill (paged flash | plain)
     decode_attention(...)  paged decode attention (paged kernel | plain),
                            optionally with the KV write fused in
+    wkv(...)               the RWKV6 recurrence (wkv6 kernel | plain)
 """
 from __future__ import annotations
 
@@ -16,11 +17,17 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_fused)
 from repro_torch.kernels.paged_flash_attention import paged_flash_attention
+from repro_torch.kernels.wkv6 import wkv6
 
 
 # dense chunked-prefill attention, one host ``q_offset`` for the batch:
 # the wrapper itself dispatches by device (flash kernel | plain version)
 attention = flash_attention
+
+# the RWKV6 recurrence, ``wkv(r, k, v, w, u, state, *, chunk=32)``: the
+# wrapper dispatches by device (wkv6 kernel | plain version); JAX's
+# ``ops.wkv`` takes its ``use_kernel`` override, which the port drops
+wkv = wkv6
 
 
 def prefill_attention(q, k_pages, v_pages, block_table, kv_len, q_offset):

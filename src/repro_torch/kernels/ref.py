@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the Hopper kernels (attention and WKV6).
 
 They mirror ``repro.kernels.ref`` op for op (f32 einsum, scale applied
-after the einsum, softcap before the mask, ``-1e30`` mask value, softmax)
-and are the ground truth the Hopper kernels are held against: the CPU
+after the einsum, softcap before the mask, ``-1e30`` mask value, softmax;
+the WKV6 recurrence step by step in f32) and are the ground truth the
+Hopper kernels are held against: the CPU
 tests compare them with the JAX oracles, and ``chip_smoke.py`` compares
 each kernel with them on the card. On a CPU tensor the kernel wrappers
 call these directly.
@@ -106,3 +107,25 @@ def paged_flash_attention_ref(q, k_pages, v_pages, block_table, kv_len,
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(F32))
     out = out.reshape(B, Sq, Hq, D).to(q.dtype)
     return out.transpose(1, 2)
+
+
+def wkv6_ref(r, k, v, w, u, state):
+    """Sequential WKV6 recurrence (the mathematical definition).
+
+    r/k/v/w: (B, T, H, K); u: (H, K); state: (B, H, K, K) f32.
+    Returns (o (B, T, H, K) f32, final state (B, H, K, K) f32).
+        o_t = r_t @ S_{t-1} + (r_t . (u*k_t)) v_t
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    """
+    rf, kf, vf, wf = (a.to(F32) for a in (r, k, v, w))
+    uf = u.to(F32)
+    S = state.to(F32)
+    outs = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]   # (B, H, K)
+        o = torch.einsum("bhk,bhkv->bhv", rt, S) + \
+            torch.einsum("bhk,bhk->bh", rt, uf[None] * kt)[..., None] * vt
+        S = wt[..., None] * S + torch.einsum("bhk,bhv->bhkv", kt, vt)
+        outs.append(o)
+    o = torch.stack(outs, dim=1) if outs else rf.new_zeros(r.shape)
+    return o, S

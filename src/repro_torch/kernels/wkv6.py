@@ -1,0 +1,122 @@
+"""The RWKV6 (WKV) recurrence on Hopper: the time mix of the rwkv6 family.
+
+Replaces the Pallas TPU kernel ``wkv6`` (``src/repro/kernels/wkv6.py:70``,
+body ``_kernel``); the CUDA source is ``csrc/wkv6.cu``. Per batch row and
+head, with a ``(K, K)`` f32 state ``S`` carried over the steps::
+
+    o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T        (w clipped to [1e-12, 1])
+
+The TPU kernel walks chunks of ``chunk`` steps on a sequential grid axis
+and carries the state in VMEM scratch; here one block of K threads per
+(row, head) walks every step with the state's columns in registers, so
+``chunk`` only keeps the reference's length contract (``T`` a multiple of
+``min(chunk, T)``). r/k/v/w are read in place through their strides
+(last dimension contiguous): the TPU wrapper's move to ``(B, H, T, K)`` is
+no copy here.
+
+What bounds it on the H100: bytes. A prefill of B 8, T 1,024, H 32, K 64
+in bf16 moves ≈ 243 MB (≈ 0.073 ms at 3.35 TB/s, reckoned) for ≈ 5.4
+GFLOP; a decode step moves the state. The simple design runs every
+product on the CUDA cores in f32 and is limited by the serial walk;
+PERF.md records its time against the bound.
+
+On a CPU tensor the wrapper runs the plain version
+(:func:`repro_torch.kernels.ref.wkv6_ref`); on a CUDA tensor it launches
+the kernel or raises. ``.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import wkv6_ref
+
+F32 = torch.float32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_SIZES = (32, 64)
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("wkv6")
+    fn = lib.wkv6
+    if fn.argtypes is None:
+        fn.argtypes = [_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                       _int, _int, _int, _int, _vp]
+        fn.restype = _int
+    return lib
+
+
+def _check_len(r, chunk: int):
+    """The reference's length contract, on every device: the Pallas
+    wrapper (and the model's ``wkv6_chunked``) cut T into chunks of
+    ``min(chunk, T)``."""
+    if r.dim() != 4:
+        raise ValueError("r/k/v/w must be (B, T, H, K)")
+    T = r.shape[1]
+    if T < 1 or chunk < 1 or T % min(chunk, T):
+        raise ValueError(f"T={T} is not a multiple of min(chunk={chunk}, T)")
+
+
+def _check(r, k, v, w, u, state):
+    B, T, H, K = r.shape
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != r {tuple(r.shape)}")
+    if u.shape != (H, K) or state.shape != (B, H, K, K):
+        raise ValueError(f"u {tuple(u.shape)} must be {(H, K)}, state "
+                         f"{tuple(state.shape)} must be {(B, H, K, K)}")
+    if K not in _HEAD_SIZES:
+        raise ValueError(f"head size {K} not in {_HEAD_SIZES}")
+    if r.dtype not in _DTYPE_CODE or k.dtype != r.dtype or \
+            v.dtype != r.dtype:
+        raise TypeError(f"r/k/v must share float32 or bfloat16, got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("w", w), ("u", u), ("state", state)):
+        if t.dtype != F32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for t in (k, v, w, u, state):
+        if t.device != r.device:
+            raise ValueError(f"tensors on {t.device} and {r.device}")
+    for t in (r, k, v, w):
+        if t.stride(-1) != 1:
+            raise ValueError("wkv6 needs a contiguous last dimension")
+    if not (u.is_contiguous() and state.is_contiguous()):
+        raise ValueError("u and state must be contiguous")
+
+
+def wkv6(r, k, v, w, u, state, *, chunk: int = 32):
+    """r/k/v/w: (B, T, H, K), r/k/v float32 or bfloat16, w float32 in
+    (0, 1]; u: (H, K) float32; state: (B, H, K, K) float32.
+
+    Returns (o (B, T, H, K) float32, final state (B, H, K, K) float32)."""
+    _check_len(r, chunk)
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, w, u, state)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6: no kernel for {r.device}")
+    _check(r, k, v, w, u, state)
+    B, T, H, K = r.shape
+    o = torch.empty((B, T, H, K), dtype=F32, device=r.device)
+    s_out = torch.empty((B, H, K, K), dtype=F32, device=r.device)
+    if B == 0 or H == 0:
+        return o, s_out
+    lib = _lib()
+    strides = (ctypes.c_int64 * 12)(*(s for t in (r, k, v, w)
+                                      for s in t.stride()[:3]))
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.wkv6(_DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                      state.data_ptr(), o.data_ptr(), s_out.data_ptr(),
+                      ctypes.addressof(strides), B, T, H, K, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
+    wkv6.launches += 1
+    return o, s_out
+
+
+wkv6.launches = 0

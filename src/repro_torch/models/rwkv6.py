@@ -1,0 +1,310 @@
+"""RWKV6 ("Finch"): the serving paths of ``repro.models.rwkv6`` in PyTorch.
+
+An attention-free LM with data-dependent per-channel decay. Every time mix
+runs the WKV6 recurrence through ``ops.wkv``: on the card the hand-written
+``wkv6`` kernel, on the CPU its plain sequential version. The JAX model
+runs its own jnp ``wkv6_chunked`` there instead and reaches the Pallas
+kernel only through its ``ops.wkv``; the port puts the kernel on the
+path, a deliberate difference (ROADMAP.md section 3). ``wkv6_chunked`` and
+``wkv6_step`` stay here as plain functions held against JAX's.
+
+The layer ``scan`` becomes a Python loop over the stacked per-layer
+weights. ``rwkv_forward`` keeps the serving arguments (``state``,
+``return_state``); ``pctx`` and ``remat`` (sharding, training) are not
+ported, nor is the JAX package's ``REPRO_PROBE_CHUNK`` override (a knob of
+its roofline probe). Dtypes follow the JAX model point for point: the
+mixing and decay LoRAs accumulate in f32, r/k/v stay in the model dtype,
+the gate, the decay and the recurrence's output are f32, and ``w_base``,
+``u`` and ``ln_x_scale`` are f32 leaves under a bf16 model.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import matmul_f32, rms_norm
+from repro_torch.models.transformer import _normal, layer_params
+
+F32 = torch.float32
+MIX_NAMES = ("w", "k", "v", "r", "g")
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor not yet allocated (the port's
+    counterpart of ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def _heads(cfg: ModelConfig) -> Tuple[int, int]:
+    """(H, K): the head count follows from d_model / head_size, whatever
+    ``cfg.n_heads`` says (the reduced config has n_heads 4 and H 4 only by
+    coincidence of 128 / 32)."""
+    K = cfg.rwkv.head_size
+    return cfg.d_model // K, K
+
+
+@dataclasses.dataclass
+class RWKVState:
+    """att_shift/ffn_shift: (L, B, D) in the model dtype; wkv:
+    (L, B, H, K, K) float32."""
+    att_shift: Any
+    ffn_shift: Any
+    wkv: Any
+
+    @classmethod
+    def specs(cls, cfg: ModelConfig, batch: int, dtype=torch.bfloat16):
+        H, K = _heads(cfg)
+        shift = TensorSpec((cfg.n_layers, batch, cfg.d_model), dtype)
+        return cls(shift, shift,
+                   TensorSpec((cfg.n_layers, batch, H, K, K), F32))
+
+    @classmethod
+    def zeros(cls, cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+              device="cpu"):
+        specs = cls.specs(cfg, batch, dtype)
+        return cls(*(torch.zeros(s.shape, dtype=s.dtype, device=device)
+                     for s in (specs.att_shift, specs.ffn_shift, specs.wkv)))
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_rwkv(cfg: ModelConfig, generator: torch.Generator,
+              dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
+    """Random weights with the shapes, scales and per-leaf dtypes of
+    ``repro.models.rwkv6.init_rwkv`` (not its bits: torch draws
+    differently). Per-layer weights are stacked under ``"layers"`` with a
+    leading ``n_layers`` axis, drawn slice by slice. ``generator`` must
+    live on ``device``."""
+    D, L = cfg.d_model, cfg.n_layers
+    r, dl, Fd = cfg.rwkv.mix_lora, cfg.rwkv.decay_lora, cfg.d_ff
+    s = D ** -0.5
+
+    def nrm(shape, scale, dt=dtype):
+        return _normal((L, *shape), scale, generator, dt, device)
+
+    def full(shape, value, dt=dtype):
+        return torch.full((L, *shape), value, dtype=dt, device=device)
+
+    layers = {
+        "mu_x": full((D,), 0.5),
+        "mu": full((5, D), 0.5),
+        "mix_A": nrm((D, 5 * r), s),
+        "mix_B": nrm((5, r, D), r ** -0.5),
+        "w_base": full((D,), -6.0, F32),
+        "decay_A": nrm((D, dl), s),
+        "decay_B": nrm((dl, D), dl ** -0.5),
+        "u": nrm((D,), 0.1, F32),
+        "wr": nrm((D, D), s),
+        "wk": nrm((D, D), s),
+        "wv": nrm((D, D), s),
+        "wg": nrm((D, D), s),
+        "wo": nrm((D, D), s),
+        "ln_x_scale": full((D,), 1.0, F32),
+        "ln1": full((D,), 0.0),
+        "ln2": full((D,), 0.0),
+        "cm_mu_k": full((D,), 0.5),
+        "cm_mu_r": full((D,), 0.5),
+        "cm_wk": nrm((D, Fd), s),
+        "cm_wv": nrm((Fd, D), Fd ** -0.5),
+        "cm_wr": nrm((D, D), s),
+    }
+    return {
+        "embed": _normal((cfg.vocab_size, D), s, generator, dtype, device),
+        "layers": layers,
+        "ln_final": torch.zeros((D,), dtype=dtype, device=device),
+        "lm_head": _normal((D, cfg.vocab_size), s, generator, dtype, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# WKV6 plain forms (held against JAX's; the model path runs ops.wkv)
+#   S_t = diag(w_t) S_{t-1} + k_t v_t^T
+#   o_t = r_t @ S_{t-1} + (r_t . (u*k_t)) v_t
+# ---------------------------------------------------------------------------
+
+def wkv6_chunked(r, k, v, w, u, state, chunk: int = 32):
+    """r,k,v,w: (B, T, H, K) [w in (0,1)]; u: (H, K); state: (B, H, K, K)
+    f32. Returns (o (B,T,H,K) f32, new state). T must be a multiple of
+    ``chunk``.
+
+    The chunked form of the JAX model, op for op: the intra-chunk term
+    factors exp(cum_{t-1} - cum_i) into two factors, each centred by half
+    the chunk's total log-decay, and the masked triangle is zeroed with
+    ``where`` (an inf times 0 would give NaN)."""
+    B, T, H, K = r.shape
+    if T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    n_chunks = T // chunk
+    shp = (B, n_chunks, chunk, H, K)
+    rs, ks_, vs = (a.to(F32).reshape(shp) for a in (r, k, v))
+    lw = torch.log(torch.clamp(w.to(F32), 1e-12, 1.0)).reshape(shp)
+    uf = u.to(F32)
+    S = state.to(F32)
+    ti = torch.arange(chunk, device=r.device)
+    tri = ti[None, :] < ti[:, None]              # strictly lower triangular
+    outs = []
+    for c in range(n_chunks):
+        rc, kc, vc, lwc = rs[:, c], ks_[:, c], vs[:, c], lw[:, c]
+        cum = torch.cumsum(lwc, dim=1)           # inclusive decay logs
+        r_dec = rc * torch.exp(cum - lwc)        # decay excludes current step
+        o_inter = torch.einsum("bchk,bhkv->bchv", r_dec, S)
+        half = 0.5 * cum[:, -1:]                 # centring offset (B,1,H,K)
+        q_ = rc * torch.exp(cum - lwc - half)
+        k_ = kc * torch.exp(half - cum)
+        att = torch.einsum("bchk,bihk->bhci", q_, k_)
+        att = torch.where(tri[None, None], att, torch.zeros_like(att))
+        o_intra = torch.einsum("bhci,bihv->bchv", att, vc)
+        bonus = torch.einsum("bchk,bchk->bch", rc, uf[None, None] * kc)
+        outs.append(o_inter + o_intra + bonus[..., None] * vc)
+        total = cum[:, -1]                       # (B, H, K)
+        k_dec = kc * torch.exp(total[:, None] - cum)
+        S = torch.exp(total)[..., None] * S + \
+            torch.einsum("bchk,bchv->bhkv", k_dec, vc)
+    o = torch.stack(outs, dim=1).reshape(B, T, H, K)
+    return o, S
+
+
+def wkv6_step(r, k, v, w, u, state):
+    """Single-token recurrence. r,k,v,w: (B, H, K); state (B, H, K, K) f32."""
+    rf, kf, vf, wf = (a.to(F32) for a in (r, k, v, w))
+    o = torch.einsum("bhk,bhkv->bhv", rf, state) + \
+        torch.einsum("bhk,bhk->bh", rf, u.to(F32)[None] * kf)[..., None] * vf
+    state = wf[..., None] * state + torch.einsum("bhk,bhv->bhkv", kf, vf)
+    return o, state
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _shifted(x, shift_in):
+    """dx = x_{t-1} - x_t, with ``shift_in`` (B, D) as x_{-1}."""
+    x_prev = torch.cat([shift_in[:, None], x[:, :-1]], dim=1)
+    return x_prev - x
+
+
+def _dyn_mix(p, x, dx):
+    """5-way data-dependent token-shift mix -> dict of mixed inputs."""
+    base = x + dx * p["mu_x"].to(x.dtype)
+    lora = torch.tanh(matmul_f32(base, p["mix_A"]))
+    r5 = lora.reshape(*lora.shape[:-1], 5, -1)
+    offs = torch.einsum("btnr,nrd->nbtd", r5, p["mix_B"].to(F32))
+    xf, dxf = x.to(F32), dx.to(F32)
+    return {name: (xf + dxf * (p["mu"][i].to(F32) + offs[i])).to(x.dtype)
+            for i, name in enumerate(MIX_NAMES)}
+
+
+def _decay(p, xw):
+    """Data-dependent decay w in (0,1): exp(-exp(base + lora(xw))), the
+    pre-decay exponent clipped to [-20, 0.35] as in the JAX model."""
+    lora = torch.tanh(matmul_f32(xw, p["decay_A"])) @ p["decay_B"].to(F32)
+    return torch.exp(-torch.exp(torch.clamp(p["w_base"] + lora, -20.0,
+                                            0.35)))
+
+
+def _group_norm(o, scale, H):
+    """Per-head normalisation of (..., H, K) flattened to (..., D). The
+    variance is the population one (``jnp.var``), not torch's default."""
+    mu = torch.mean(o, dim=-1, keepdim=True)
+    var = torch.var(o, dim=-1, keepdim=True, correction=0)
+    o = (o - mu) * torch.rsqrt(var + 1e-5)
+    return o.reshape(*o.shape[:-2], -1) * scale
+
+
+def time_mix_full(cfg: ModelConfig, p, x, shift_in, wkv_state, chunk=32):
+    """Full-sequence time mix. x (B,T,D). Returns (out, last_x, new_state).
+    T must be at most ``chunk`` or a multiple of it (the reference's
+    contract); the recurrence runs in ``ops.wkv``."""
+    B, T, D = x.shape
+    H, K = _heads(cfg)
+    m = _dyn_mix(p, x, _shifted(x, shift_in))
+    r = (m["r"] @ p["wr"]).reshape(B, T, H, K)
+    k = (m["k"] @ p["wk"]).reshape(B, T, H, K)
+    v = (m["v"] @ p["wv"]).reshape(B, T, H, K)
+    g = F.silu((m["g"] @ p["wg"]).to(F32))
+    w = _decay(p, m["w"]).reshape(B, T, H, K)
+    u = p["u"].reshape(H, K)
+    o, new_state = ops.wkv(r, k, v, w, u, wkv_state, chunk=min(chunk, T))
+    o = _group_norm(o, p["ln_x_scale"], H) * g
+    out = o.to(x.dtype) @ p["wo"]
+    return out, x[:, -1], new_state
+
+
+def time_mix_step(cfg: ModelConfig, p, x, shift_in, wkv_state):
+    """Single-token time mix. x (B, D)."""
+    out, last, state = time_mix_full(cfg, p, x[:, None], shift_in,
+                                     wkv_state, chunk=1)
+    return out[:, 0], last, state
+
+
+def channel_mix(p, x, shift_in):
+    """x (B,T,D) or (B,D) with matching shift_in (B,D)."""
+    single = x.dim() == 2
+    if single:
+        x = x[:, None]
+    dx = _shifted(x, shift_in)
+    xk = x + dx * p["cm_mu_k"].to(x.dtype)
+    xr = x + dx * p["cm_mu_r"].to(x.dtype)
+    k = torch.square(torch.relu(matmul_f32(xk, p["cm_wk"])))
+    kv = k.to(x.dtype) @ p["cm_wv"]
+    out = torch.sigmoid(matmul_f32(xr, p["cm_wr"])).to(x.dtype) * kv
+    last = x[:, -1]
+    return (out[:, 0], last) if single else (out, last)
+
+
+# ---------------------------------------------------------------------------
+# model-level forward
+# ---------------------------------------------------------------------------
+
+def rwkv_forward(cfg: ModelConfig, params, tokens, *,
+                 state: Optional[RWKVState] = None,
+                 return_state: bool = False):
+    """tokens (B, T) -> logits (B, T, V) float32; optionally the carried
+    ``RWKVState``. A ``state`` resumes the sequences where it left them
+    (decode, or a later round's prompt)."""
+    B, T = tokens.shape
+    x = params["embed"][tokens.long()]
+    if state is None:
+        state = RWKVState.zeros(cfg, B, x.dtype, x.device)
+    att_s, ffn_s, wkv_s = [], [], []
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        att, att_last, wkv_new = time_mix_full(cfg, lp, h, state.att_shift[l],
+                                               state.wkv[l])
+        x = x + att
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        ffn, ffn_last = channel_mix(lp, h2, state.ffn_shift[l])
+        x = x + ffn
+        att_s.append(att_last)
+        ffn_s.append(ffn_last)
+        wkv_s.append(wkv_new)
+    x = rms_norm(x, params["ln_final"], cfg.norm_eps)
+    logits = matmul_f32(x, params["lm_head"])
+    if return_state:
+        return logits, RWKVState(torch.stack(att_s), torch.stack(ffn_s),
+                                 torch.stack(wkv_s))
+    return logits
+
+
+def rwkv_prefill(cfg: ModelConfig, params, tokens):
+    """tokens (B, T) -> (last-position logits (B, V), state)."""
+    logits, st = rwkv_forward(cfg, params, tokens, return_state=True)
+    return logits[:, -1], st
+
+
+def rwkv_decode(cfg: ModelConfig, params, state: RWKVState, tokens,
+                positions=None):
+    """tokens (B,) -> (logits (B,V), new state). positions unused (the
+    state carries the sequence)."""
+    logits, st = rwkv_forward(cfg, params, tokens[:, None], state=state,
+                              return_state=True)
+    return logits[:, -1], st

@@ -24,7 +24,8 @@ from repro_torch.models.layers import (F32, apply_norm, attention, attn_out,
                                        paged_prefill_attention)
 
 _MOE_TODO = ("the MoE chain (_route/_dispatch/_combine/_expert_ffn) is not "
-             "ported yet: ROADMAP.md, 'Modules still to port', item 6")
+             "ported yet: ROADMAP.md, 'Modules still to port', 'The MoE "
+             "chain'")
 
 
 # ---------------------------------------------------------------------------

@@ -9,13 +9,20 @@ Phases, in order; any failure exits non-zero:
 3. kernels      holds each kernel against its plain PyTorch version on the
                 card: the sweeps of tests/test_kernels.py plus the
                 main-path shapes, in float32 (atol 2e-5) and bfloat16
-                (atol 3e-2 paged; flash 2e-2 times the output's largest
-                magnitude, capped at 2e-2); fused pool writes must be
+                (decode atol 3e-2; both flash kernels 2e-2 times the
+                output's largest magnitude, capped at 2e-2, the main-path
+                errors logged beside it); fused pool writes must be
                 exact; flash rows that see no key are not compared. wkv6:
                 test_wkv6_shapes at f32 atol 5e-4, strong decay at 1e-4
                 plus 1e-4 of the largest output, T = 1, a strided layout,
                 and the main-path prefill with bf16 r/k/v at 1e-5 of the
-                largest output
+                largest output. Then the bf16 tensor-core paths of both
+                prefill attention kernels at tile edges (Sq 1-200, Skv and
+                kv_len off multiples of 64 and mid-page, windows starting
+                mid-tile, G 1-8, D 32-128, page 8-32), softcapped scores
+                in the cap's saturating range, and poisoned: NaN at every
+                pool or slot position no row may see, held to the plain
+                version on the clean inputs
 4. model        llama3.2-1b .reduced(): lm_prefill_paged / lm_decode_paged /
                 lm_mixed_paged; gemma2-27b .reduced(): lm_forward, two
                 lm_step prefill chunks (the second ragged, past the window)
@@ -25,7 +32,11 @@ Phases, in order; any failure exits non-zero:
                 weights, on the card (kernels) and on the CPU (plain
                 versions): logits and non-scratch cache within 1e-4 (rwkv6:
                 1e-4 times the largest magnitude, at least 1), next tokens
-                equal
+                equal. Then llama and gemma2 again in bfloat16, the serving
+                dtype, at the serving head dims (64, 128): card with the
+                kernels against card with the plain attention, within
+                3e-2 times the largest magnitude (at least 1), next tokens
+                equal wherever the logit error cannot explain a tie
 5. serve        TorchBackend with llama3.2-1b at full width in bf16 (paged
                 layout) under Engine(scheduler="mixed", policy "mars") with
                 real sleep tools: 8 sessions in two shared-prefix families,
@@ -36,7 +47,9 @@ Phases, in order; any failure exits non-zero:
                 (SDPA; flex_attention, compiled, for the softcapped
                 flash_attention; none computes wkv6) on the same main-path
                 inputs (CUDA events, warmed), and the bound from bytes and
-                operations
+                operations; the two attention kernels redesigned for the
+                tensor cores also carry their profiler device times, and
+                their earlier CUDA-core times (from PERF.md) are logged
 7. profile      device time by kernel over one full-width mixed iteration
 8. serve-rwkv   rwkv6-1.6b at full width in bf16 through model_zoo: 8
                 sessions of 1,024-token prompts in one prefill, 16 greedy
@@ -64,9 +77,11 @@ device JSON line. TF32 is off throughout (float32 parity).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -97,7 +112,8 @@ from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
 F32_TOL, BF16_TOL, MODEL_TOL = 2e-5, 3e-2, 1e-4
-FLASH_BF16_TOL = 2e-2            # tests/test_kernels.py's own for this kernel
+BF16_MODEL_TOL = 3e-2            # tests/test_torch_model.py's bf16 layer tol
+FLASH_BF16_TOL = 2e-2            # tests/test_kernels.py's own for flash attention
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
 TF32_FLOPS = 495e12              # dense TF32 tensor-core peak (f32 work)
@@ -125,6 +141,13 @@ KERNELS = {
         fn=wkv6, source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/wkv6.py:70"),
 }
+# the CUDA-core times of the two kernels redesigned for the tensor cores,
+# copied from PERF.md's kernel table (this script's timing phase on an
+# H100 80GB HBM3 at 700 W, before the redesign): logged beside the new
+# times on a line of their own, never put in the kernels JSON, whose
+# numbers are all measured in the run that prints them
+EARLIER_MS = {"paged_flash_attention": 0.4225,
+              "flash_attention": {"local": 3.0971, "global": 3.4152}}
 MAIN_PATH = ("paged_attention_fused", "paged_flash_attention")
 DENSE_PATH = ("flash_attention",)
 RWKV_PATH = ("wkv6",)
@@ -250,12 +273,15 @@ def _prefill_case(gen, B, Hq, Hkv, D, page, P, Np, Sq, dtype, *,
     return q, kp, vp, table, kv_len, q_offset
 
 
-def _check_prefill(errs, gen, dtype, tol, B, Hq, Hkv, D, page, P, Np, Sq,
-                   **kw):
+def _check_prefill(errs, gen, dtype, B, Hq, Hkv, D, page, P, Np, Sq, **kw):
     args = _prefill_case(gen, B, Hq, Hkv, D, page, P, Np, Sq, dtype, **kw)
-    what = f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} Np={Np} Sq={Sq}"
-    errs.check("paged_flash_attention", dtype, paged_flash_attention(*args),
-               ref.paged_flash_attention_ref(*args), tol, what)
+    want = ref.paged_flash_attention_ref(*args)
+    tol = _flash_tol(dtype, want)
+    what = (f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} Np={Np} Sq={Sq} "
+            f"tol={tol}")
+    err = errs.check("paged_flash_attention", dtype,
+                     paged_flash_attention(*args), want, tol, what)
+    return err, tol
 
 
 def _check_shared_prefix_rows(dtype, gen):
@@ -283,23 +309,28 @@ def _seen_rows(Sq, Skv, *, causal=True, window=None, q_offset=0,
     return lo <= hi
 
 
-def _flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, *, model_layout=False):
+def _flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, *, model_layout=False,
+                  q_scale=1.0):
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D); with ``model_layout`` they
     are the transposed views the dense path hands the kernel (a
-    (B, Sq, Hq, D) query and a (B, Skv, Hkv, D) cache slot)."""
+    (B, Sq, Hq, D) query and a (B, Skv, Hkv, D) cache slot). The scores
+    are about N(0, q_scale^2)."""
     if model_layout:
-        return (_randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2),
-                _randn(gen, (B, Skv, Hkv, D), dtype).transpose(1, 2),
-                _randn(gen, (B, Skv, Hkv, D), dtype).transpose(1, 2))
-    return (_randn(gen, (B, Hq, Sq, D), dtype),
-            _randn(gen, (B, Hkv, Skv, D), dtype),
-            _randn(gen, (B, Hkv, Skv, D), dtype))
+        q = _randn(gen, (B, Sq, Hq, D), torch.float32).transpose(1, 2)
+        k = _randn(gen, (B, Skv, Hkv, D), dtype).transpose(1, 2)
+        v = _randn(gen, (B, Skv, Hkv, D), dtype).transpose(1, 2)
+    else:
+        q = _randn(gen, (B, Hq, Sq, D), torch.float32)
+        k = _randn(gen, (B, Hkv, Skv, D), dtype)
+        v = _randn(gen, (B, Hkv, Skv, D), dtype)
+    return (q * q_scale).to(dtype), k, v
 
 
 def _flash_tol(dtype, want):
-    """f32: 2e-5 absolute. bf16: 2e-2, the JAX test's own tolerance, but
-    relative to the output's scale: at the main-path chunk the outputs
-    (softmax averages over ~1,500 keys) are themselves about 2e-2, so an
+    """Both flash attention kernels (dense and paged). f32: 2e-5 absolute.
+    bf16: 2e-2, the JAX test's own tolerance, but relative to the output's
+    scale: at the main-path chunks the outputs (softmax averages over
+    hundreds to thousands of keys) are themselves a few 1e-2, so an
     absolute 2e-2 would pass an output that merely has their magnitude."""
     if dtype == torch.float32:
         return F32_TOL
@@ -307,16 +338,17 @@ def _flash_tol(dtype, want):
 
 
 def _check_flash(errs, gen, dtype, B, Hq, Hkv, Sq, Skv, D, *,
-                 model_layout=False, **kw):
+                 model_layout=False, q_scale=1.0, **kw):
     q, k, v = _flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype,
-                            model_layout=model_layout)
+                            model_layout=model_layout, q_scale=q_scale)
     got = flash_attention(q, k, v, **kw)
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"flash_attention: non-finite output {kw}")
     seen = _seen_rows(Sq, Skv, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)[:, :, seen]
     tol = _flash_tol(dtype, want)
-    what = f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {kw} tol={tol}"
+    what = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {kw} "
+            f"q_scale={q_scale} tol={tol}")
     err = errs.check("flash_attention", dtype, got[:, :, seen], want, tol,
                      what)
     return err, tol
@@ -430,6 +462,126 @@ def _wkv_sweeps(errs, gen):
         f"{errs.max[('wkv6', 'bfloat16')]:.3e}")
 
 
+# Tile-edge shapes for the tensor-core paths (64-row query blocks, 64-key
+# tiles): the cases of tests/test_torch_flash.py's and
+# tests/test_torch_kernels.py's tile-edge tests, where the plain versions
+# are held to JAX's. Flash: (B, Hq, Hkv, Sq, Skv, D), kwargs.
+FLASH_EDGE_CASES = [
+    ((1, 2, 2, 1, 77, 64), dict(q_offset=76)),
+    ((2, 4, 2, 15, 100, 32), dict(q_offset=85, window=40)),
+    ((1, 8, 2, 17, 129, 128), dict(q_offset=112, softcap=30.0)),
+    ((1, 8, 1, 63, 190, 64), dict(q_offset=127, window=100, softcap=50.0)),
+    ((1, 4, 2, 65, 65, 128), dict(q_offset=0)),
+    ((1, 4, 1, 200, 333, 64), dict(q_offset=133, window=77)),
+    ((1, 2, 1, 65, 150, 32), dict(causal=False, window=50)),
+    ((1, 4, 4, 17, 70, 64), dict(q_offset=60)),
+]
+# paged: (B, Hq, Hkv, D, page, P, Np, Sq), kv_len per row
+PREFILL_EDGE_CASES = [
+    ((2, 2, 2, 64, 8, 24, 10, 1), (73, 1)),
+    ((2, 4, 2, 32, 16, 20, 6, 15), (90, 15)),
+    ((1, 8, 2, 128, 32, 8, 5, 17), (147,)),
+    ((2, 8, 1, 64, 8, 40, 12, 63), (91, 70)),
+    ((1, 4, 2, 64, 16, 16, 10, 65), (150,)),
+    ((1, 4, 1, 128, 32, 12, 9, 200), (263,)),
+]
+
+
+def _paged_edge(gen, dtype, shape, kv_len):
+    """A prefill case with distinct pages per row (so a page that one row
+    may not see is seen by no other row either)."""
+    B, Hq, Hkv, D, page, P, Np, Sq = shape
+    q = _randn(gen, (B, Hq, Sq, D), dtype)
+    kp = _randn(gen, (P, page, Hkv, D), dtype)
+    vp = _randn(gen, (P, page, Hkv, D), dtype)
+    perm = torch.randperm(P, generator=gen, device=DEV)
+    table = perm[:B * Np].reshape(B, Np).int().contiguous()
+    kvl = torch.tensor(kv_len, device=DEV).int()
+    return q, kp, vp, table, kvl, (kvl - Sq).int()
+
+
+def _poison_pages(args):
+    """NaN in every pool position that no row of the call may see: pages
+    outside each row's visible range and the tail of its last page."""
+    q, kp, vp, table, kvl, qo = args
+    Sq, page = q.shape[2], kp.shape[1]
+    seen = torch.zeros(kp.shape[:2], dtype=torch.bool, device=DEV)
+    for b in range(table.shape[0]):
+        end = min(int(kvl[b]), int(qo[b]) + Sq, table.shape[1] * page)
+        t = torch.arange(end, device=DEV)
+        seen[table[b, t // page].long(), t % page] = True
+    nan = torch.tensor(float("nan"), dtype=kp.dtype, device=DEV)
+    return (q, torch.where(seen[..., None, None], kp, nan),
+            torch.where(seen[..., None, None], vp, nan), table, kvl, qo)
+
+
+def _poison_slot(k, Sq, q_offset, window):
+    """NaN at every slot position outside the keys the call's rows see."""
+    Skv = k.shape[2]
+    pos = torch.arange(Skv, device=DEV)
+    lo = max(0, q_offset - window + 1) if window else 0
+    hi = min(Skv, q_offset + Sq)
+    seen = ((pos >= lo) & (pos < hi))[None, None, :, None]
+    return torch.where(seen, k, torch.tensor(float("nan"), dtype=k.dtype,
+                                             device=DEV))
+
+
+def _edge_sweeps(errs, gen, dtype):
+    """Tile-edge shapes for both attention kernels; softcapped scores that
+    reach the cap's saturating range; then the poisoned cases: NaN
+    wherever no row may look, held against the plain version on the
+    unpoisoned inputs (a masked key weighs 0, but 0 * NaN is NaN)."""
+    for n, (shape, kw) in enumerate(FLASH_EDGE_CASES):
+        _check_flash(errs, gen, dtype, *shape, model_layout=n % 2 == 1, **kw)
+    # scores about N(0, q_scale^2) against the cap: s / softcap about
+    # N(0, 1) at the main-path chunk, N(0, 16) (deep in saturation) below
+    for shape, q_scale, kw in (
+            (tuple(GEMMA2_CHUNK.values()), GEMMA2_SOFTCAP,
+             dict(q_offset=GEMMA2_OFFSET, window=GEMMA2_WINDOW,
+                  softcap=GEMMA2_SOFTCAP)),
+            ((1, 8, 2, 100, 300, 64), 120.0,
+             dict(q_offset=200, window=64, softcap=30.0))):
+        err, tol = _check_flash(errs, gen, dtype, *shape, model_layout=True,
+                                q_scale=q_scale, **kw)
+        log(f"[kernels] flash_attention {dtype} softcap {kw['softcap']} at "
+            f"scores x{q_scale} (saturating) Sq={shape[3]} Skv={shape[4]} "
+            f"D={shape[5]}: max abs err {err:.3e} (tol {tol:.3e})")
+    for shape, kv_len in PREFILL_EDGE_CASES:
+        args = _paged_edge(gen, dtype, shape, kv_len)
+        want = ref.paged_flash_attention_ref(*args)
+        errs.check("paged_flash_attention", dtype,
+                   paged_flash_attention(*args), want,
+                   _flash_tol(dtype, want), f"edge {shape} kv_len={kv_len}")
+    for shape, kv_len in (((2, 8, 2, 64, 16, 40, 12, 65), (150, 97)),
+                          ((1, 32, 8, 64, 32, 80, 66, 256), (1280,))):
+        args = _paged_edge(gen, dtype, shape, kv_len)
+        got = paged_flash_attention(*_poison_pages(args))
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"paged_flash_attention poisoned {shape}: "
+                                 "non-finite output")
+        want = ref.paged_flash_attention_ref(*args)
+        tol = _flash_tol(dtype, want)
+        err = errs.check("paged_flash_attention", dtype, got, want, tol,
+                         f"poisoned {shape} kv_len={kv_len}")
+        log(f"[kernels] paged_flash_attention {dtype} poisoned {shape} "
+            f"kv_len={kv_len}: max abs err {err:.3e} (tol {tol:.3e})")
+    for B, Hq, Hkv, Sq, Skv, D, q_offset, window in (
+            (1, 4, 2, 100, 400, 64, 150, 70),
+            (1, 8, 4, 65, 300, 128, 100, None),
+            (1, 32, 16, 512, 6144, 128, GEMMA2_OFFSET, GEMMA2_WINDOW)):
+        q, k, v = _flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype,
+                                model_layout=True)
+        kw = dict(q_offset=q_offset, window=window, softcap=GEMMA2_SOFTCAP)
+        got = flash_attention(q, _poison_slot(k, Sq, q_offset, window),
+                              _poison_slot(v, Sq, q_offset, window), **kw)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"flash_attention poisoned {q.shape}: "
+                                 "non-finite output")
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        errs.check("flash_attention", dtype, got, want,
+                   _flash_tol(dtype, want), f"poisoned Sq={Sq} Skv={Skv} {kw}")
+
+
 def phase_kernels() -> Errors:
     errs = Errors()
     gen = torch.Generator(device=DEV).manual_seed(7)
@@ -450,13 +602,16 @@ def phase_kernels() -> Errors:
                       lengths=[2048, 1, 33, 1024, 1500, 700, 64, 1999])
         _check_idle_lanes(errs, gen, dtype, tol)
         for shape in prefill_sweep:
-            _check_prefill(errs, gen, dtype, tol, *shape)
+            _check_prefill(errs, gen, dtype, *shape)
         # main path: chunks up to the token budget over up to 2k context
         for C, kv in ((512, 2048), (256, 1280), (200, 1000), (32, 32)):
-            _check_prefill(errs, gen, dtype, tol, 1, 32, 8, 64, 32, 80, 66,
-                           C, kv_len=[kv], table_ids=80)
+            err, ptol = _check_prefill(errs, gen, dtype, 1, 32, 8, 64, 32, 80,
+                                       66, C, kv_len=[kv], table_ids=80)
+            log(f"[kernels] paged_flash_attention {dtype} main path C={C} "
+                f"kv_len={kv}: max abs err {err:.3e} (tol {ptol:.3e})")
         _check_shared_prefix_rows(dtype, gen)
         _flash_sweeps(errs, gen, dtype)
+    _edge_sweeps(errs, gen, torch.bfloat16)
     _wkv_sweeps(errs, gen)
     torch.cuda.synchronize()
     for (name, dt), err in sorted(errs.max.items()):
@@ -465,7 +620,8 @@ def phase_kernels() -> Errors:
 
 
 # ---------------------------------------------------------------------------
-# 4. model parity: card (kernels) vs CPU (plain versions)
+# 4. model parity: card (kernels) vs CPU (plain versions) in float32; in
+#    bfloat16, the serving dtype, card (kernels) vs card (plain attention)
 # ---------------------------------------------------------------------------
 
 def _tree_map(fn, tree):
@@ -478,37 +634,154 @@ def _to_device(tree):
     return _tree_map(lambda t: t.to(DEV), tree)
 
 
-def phase_model() -> None:
-    cfg = get_config("llama3.2-1b").reduced()
-    params = tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
-    dparams = _to_device(params)
+@contextlib.contextmanager
+def _plain_attention():
+    """The model's attention through the plain versions, on whatever
+    device its tensors are: the reference side of the bf16 model phases.
+    Patches the ``ops`` entry points the layers call; restored on exit."""
+    from repro_torch.kernels import ops
+
+    def decode(q, k_pages, v_pages, block_table, lengths, *, k_new=None,
+               v_new=None, write_pages=None, write_offsets=None):
+        if k_new is None:
+            return ref.paged_attention_ref(q, k_pages, v_pages, block_table,
+                                           lengths)
+        slot = (write_pages.long(), write_offsets.long())
+        k_pages.index_put_(slot, k_new)
+        v_pages.index_put_(slot, v_new)
+        return (ref.paged_attention_ref(q, k_pages, v_pages, block_table,
+                                        lengths), k_pages, v_pages)
+
+    saved = ops.attention, ops.prefill_attention, ops.decode_attention
+    ops.attention = ref.flash_attention_ref
+    ops.prefill_attention = ref.paged_flash_attention_ref
+    ops.decode_attention = decode
+    try:
+        yield
+    finally:
+        ops.attention, ops.prefill_attention, ops.decode_attention = saved
+
+
+class _ModelParity:
+    """The two sides of a model phase and their comparison. float32: the
+    reference runs on the CPU (plain versions), the kernels on the card,
+    within MODEL_TOL. bfloat16: both run on the card, the reference under
+    _plain_attention, within BF16_MODEL_TOL times the reference's largest
+    magnitude (at least 1); the reference side must launch no kernel and
+    the kernel side must launch each of ``kernels``. Next tokens must be
+    equal; in bfloat16 at each row whose reference top two logits differ
+    by more than twice the row's largest logit error (a closer tie may
+    break either way within it), the other rows counted as near ties."""
+
+    def __init__(self, label, dtype, kernels):
+        self.label, self.dtype, self.kernels = label, dtype, kernels
+        self.bf16 = dtype == torch.bfloat16
+        self.ref_dev = DEV if self.bf16 else torch.device("cpu")
+        self.worst = 0.0
+        self.launched = dict.fromkeys(kernels, 0)
+        self.compared = self.ties = 0
+
+    def params(self, params):
+        """(reference, kernel) copies of float32 ``params`` in the dtype."""
+        return (_tree_map(lambda t: t.to(self.ref_dev, self.dtype), params),
+                _tree_map(lambda t: t.to(DEV, self.dtype), params))
+
+    def cache(self, kind, k0, v0):
+        return (kind(k0.to(self.ref_dev, self.dtype, copy=True),
+                     v0.to(self.ref_dev, self.dtype, copy=True)),
+                kind(k0.to(DEV, self.dtype), v0.to(DEV, self.dtype)))
+
+    def run(self, fn, ref_args, dev_args):
+        """fn(*ref_args) as the reference, fn(*dev_args) with the kernels."""
+        counts = [KERNELS[n]["fn"].launches for n in self.kernels]
+        if self.bf16:
+            with _plain_attention():
+                want = fn(*ref_args)
+            if [KERNELS[n]["fn"].launches for n in self.kernels] != counts:
+                raise AssertionError(f"{self.label}: the plain side launched "
+                                     "a kernel")
+        else:
+            want = fn(*ref_args)
+        got = fn(*dev_args)
+        for n, c in zip(self.kernels, counts):
+            self.launched[n] += KERNELS[n]["fn"].launches - c
+        return want, got
+
+    def tol(self, want):
+        if not self.bf16:
+            return MODEL_TOL
+        return BF16_MODEL_TOL * max(1.0, want.float().abs().max().item())
+
+    def agree(self, got, want, what):
+        want = want.float().cpu()
+        err = (got.float().cpu() - want).abs().max().item()
+        tol = self.tol(want)
+        self.worst = max(self.worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f"{self.label} {what}: max abs err {err} > "
+                                 f"{tol}")
+
+    def same(self, got, want, what):
+        got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
+        self.compared += want.numel()
+        if got.tolist() != want.tolist():
+            raise AssertionError(f"{self.label} {what}: next tokens differ: "
+                                 f"{got} vs {want}")
+
+    def same_next(self, got_logits, want_logits, what):
+        got_logits = got_logits.float().cpu()
+        want_logits = want_logits.float().cpu()
+        got, want = (torch.argmax(got_logits, -1),
+                     torch.argmax(want_logits, -1))
+        if self.bf16:
+            top = torch.topk(want_logits, 2, -1).values
+            err = (got_logits - want_logits).abs().amax(-1)
+            decided = top[..., 0] - top[..., 1] > 2 * err
+            self.ties += int((~decided).sum())
+            got, want = got[decided], want[decided]
+        self.same(got, want, what)
+
+    def done(self):
+        never = [n for n, c in self.launched.items() if c <= 0]
+        if self.bf16 and never:
+            raise AssertionError(f"{self.label}: {never} never launched")
+        tol = f"{BF16_MODEL_TOL} x max(1, |plain|)" if self.bf16 \
+            else f"{MODEL_TOL}"
+        side = "card, plain attention" if self.bf16 else "cpu"
+        log(f"[model] {self.label} {str(self.dtype)[6:]}: card (kernels "
+            f"{self.launched}) vs {side}: worst err/tol {self.worst:.3f} "
+            f"(tol {tol}); next tokens equal at {self.compared} rows"
+            + (f", {self.ties} near ties not compared" if self.bf16 else ""))
+
+
+def phase_model(dtype=torch.float32) -> None:
+    """llama3.2-1b .reduced() on the paged pool (see _ModelParity); in
+    bf16 at the serving instances' head dim and group (D 64, G 4)."""
+    over = dict(head_dim=64, n_heads=8) if dtype == torch.bfloat16 else {}
+    cfg = get_config("llama3.2-1b").reduced(**over)
+    mp = _ModelParity(f"llama3.2-1b reduced {over}", dtype,
+                      ("paged_flash_attention", "paged_attention_fused"))
+    rparams, dparams = mp.params(
+        tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32))
     page, P, Np = 32, 12, 4
     scratch = P - 1
     rng = np.random.default_rng(3)
     shp = (cfg.n_layers, P, page, cfg.n_kv_heads, cfg.head_dim_)
     k0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
     v0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
-    cpu = tf.PagedKVCache(k0.clone(), v0.clone())
-    gpu = tf.PagedKVCache(k0.to(DEV), v0.to(DEV))
-    worst = 0.0
-
-    def agree(a, b, what):
-        nonlocal worst
-        err = (a.float().cpu() - b.float()).abs().max().item()
-        worst = max(worst, err)
-        if not err <= MODEL_TOL:
-            raise AssertionError(f"model {what}: max abs err {err}")
+    rcache, dcache = mp.cache(tf.PagedKVCache, k0, v0)
 
     def pools(what):
         live = [p for p in range(P) if p != scratch]
-        agree(gpu.k[:, live], cpu.k[:, live], what + " k pages")
-        agree(gpu.v[:, live], cpu.v[:, live], what + " v pages")
+        mp.agree(dcache.k[:, live], rcache.k[:, live], what + " k pages")
+        mp.agree(dcache.v[:, live], rcache.v[:, live], what + " v pages")
 
     def both(fn, *args):
-        a = fn(cfg, params, cpu, *(torch.as_tensor(x) for x in args))
-        b = fn(cfg, dparams, gpu, *(torch.as_tensor(x).to(DEV)
-                                    for x in args))
-        return a, b
+        return mp.run(
+            fn, (cfg, rparams, rcache,
+                 *(torch.as_tensor(x).to(mp.ref_dev) for x in args)),
+            (cfg, dparams, dcache, *(torch.as_tensor(x).to(DEV)
+                                     for x in args)))
 
     # chunked prefill: two chunks, the second ragged (20 real of 32)
     table = np.array([0, 1, scratch, scratch], np.int32)
@@ -523,7 +796,8 @@ def phase_model() -> None:
         wo[:n] = (start + np.arange(n)) % page
         (lc, _), (lg, _) = both(tf.lm_prefill_paged, toks, pos, table, wp, wo,
                                 np.int32(start + n))
-        agree(lg[:, :n], lc[:, :n], f"prefill logits @{start}")
+        mp.agree(lg[:, :n], lc[:, :n], f"prefill logits @{start}")
+        mp.same_next(lg[0, n - 1], lc[0, n - 1], f"prefill @{start}")
         pools(f"prefill @{start}")
     # decode: lanes at 53 (continuing), 70 and 5 (pool garbage as context)
     tables = np.array([[0, 1, scratch], [2, 3, 4], [5, scratch, scratch],
@@ -534,7 +808,8 @@ def phase_model() -> None:
     toks = np.array([7, 9, 11, 0], np.int32)
     (lc, _), (lg, _) = both(tf.lm_decode_paged, toks, lens - 1, tables, lens,
                             wp, wo)
-    agree(lg[:3], lc[:3], "decode logits")
+    mp.agree(lg[:3], lc[:3], "decode logits")
+    mp.same_next(lg[:3], lc[:3], "decode")
     pools("decode")
     # one mixed iteration: a pack into pages 6/7 plus the decode lanes
     C = 32
@@ -552,51 +827,46 @@ def phase_model() -> None:
         tf.lm_mixed_paged, p_toks, p_pos, p_tab, p_wp, p_wo,
         np.array([24], np.int32), np.array([23], np.int32), toks, lens2 - 1,
         tables, lens2, wp, wo2)
-    if pc.tolist() != pg.cpu().tolist() or \
-            dc[:3].tolist() != dg[:3].cpu().tolist():
-        raise AssertionError(f"mixed next tokens differ: {pc}/{dc} vs "
-                             f"{pg}/{dg}")
+    if mp.bf16:     # tokens without logits cannot tell a near tie: the
+        # pools below carry the bf16 check of this call
+        log(f"[model] bf16 mixed next tokens: kernels {pg.tolist()}/"
+            f"{dg[:3].tolist()}, plain {pc.tolist()}/{dc[:3].tolist()}")
+    else:
+        mp.same(pg, pc, "mixed prefill")
+        mp.same(dg[:3], dc[:3], "mixed decode")
     pools("mixed")
-    log(f"[model] llama3.2-1b reduced f32: card vs cpu max abs err "
-        f"{worst:.3e} (tol {MODEL_TOL}); mixed next tokens equal")
+    mp.done()
 
 
-def phase_model_dense() -> None:
+def phase_model_dense(dtype=torch.float32) -> None:
     """gemma2-27b .reduced() (window 64, softcaps, post norms, tied
-    embeddings) on the dense cache: card (flash kernel) vs CPU."""
-    cfg = get_config("gemma2-27b").reduced()
-    params = tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
-    dparams = _to_device(params)
+    embeddings) on the dense cache (see _ModelParity); in bf16 at the
+    serving instance's head dim (D 128)."""
+    over = dict(head_dim=128) if dtype == torch.bfloat16 else {}
+    cfg = get_config("gemma2-27b").reduced(**over)
+    mp = _ModelParity(f"gemma2-27b reduced {over} (dense cache)", dtype,
+                      ("flash_attention",))
+    rparams, dparams = mp.params(
+        tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32))
     rng = np.random.default_rng(4)
-    worst = 0.0
-
-    def agree(a, b, what):
-        nonlocal worst
-        err = (a.float().cpu() - b.float()).abs().max().item()
-        worst = max(worst, err)
-        if not err <= MODEL_TOL:
-            raise AssertionError(f"dense model {what}: max abs err {err}")
-
-    def same_next(a, b, what):
-        if torch.argmax(a, -1).tolist() != torch.argmax(b, -1).cpu().tolist():
-            raise AssertionError(f"dense model {what}: next tokens differ")
 
     toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 90))
                             .astype(np.int32))
-    lc = tf.lm_forward(cfg, params, toks)
-    lg = tf.lm_forward(cfg, dparams, toks.to(DEV))
-    agree(lg, lc, "lm_forward logits")
-    same_next(lc[:, -1], lg[:, -1], "lm_forward")
+    lc, lg = mp.run(tf.lm_forward, (cfg, rparams, toks.to(mp.ref_dev)),
+                    (cfg, dparams, toks.to(DEV)))
+    mp.agree(lg, lc, "lm_forward logits")
+    mp.same_next(lg[:, -1], lc[:, -1], "lm_forward")
     Smax, slot = 160, 1
     shp = (cfg.n_layers, 3, Smax, cfg.n_kv_heads, cfg.head_dim_)
     k0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
     v0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
-    cpu = tf.KVCache(k0.clone(), v0.clone())
-    gpu = tf.KVCache(k0.to(DEV), v0.to(DEV))
+    rcache, dcache = mp.cache(tf.KVCache, k0, v0)
 
     def caches(what):
-        agree(gpu.k[:, :, :Smax - 1], cpu.k[:, :, :Smax - 1], what + " k")
-        agree(gpu.v[:, :, :Smax - 1], cpu.v[:, :, :Smax - 1], what + " v")
+        mp.agree(dcache.k[:, :, :Smax - 1], rcache.k[:, :, :Smax - 1],
+                 what + " k")
+        mp.agree(dcache.v[:, :, :Smax - 1], rcache.v[:, :, :Smax - 1],
+                 what + " v")
 
     def slot_of(c):
         return tf.KVCache(c.k[:, slot:slot + 1], c.v[:, slot:slot + 1])
@@ -608,12 +878,13 @@ def phase_model_dense() -> None:
         t = np.zeros((1, lane), np.int32)
         t[0, :n] = rng.integers(2, cfg.vocab_size, n)
         t = torch.from_numpy(t)
-        lc, _ = tf.lm_step(cfg, params, slot_of(cpu), t, q_offset=start,
-                           n_real=n)
-        lg, _ = tf.lm_step(cfg, dparams, slot_of(gpu), t.to(DEV),
-                           q_offset=start, n_real=n)
-        agree(lg[:, :n], lc[:, :n], f"lm_step logits @{start}")
-        same_next(lc[0, n - 1], lg[0, n - 1], f"lm_step @{start}")
+        kw = dict(q_offset=start, n_real=n)
+        (lc, _), (lg, _) = mp.run(
+            lambda *a: tf.lm_step(*a, **kw),
+            (cfg, rparams, slot_of(rcache), t.to(mp.ref_dev)),
+            (cfg, dparams, slot_of(dcache), t.to(DEV)))
+        mp.agree(lg[:, :n], lc[:, :n], f"lm_step logits @{start}")
+        mp.same_next(lg[0, n - 1], lc[0, n - 1], f"lm_step @{start}")
         if not torch.isfinite(lg).all():
             raise AssertionError("dense model: padded lanes not finite")
         caches(f"lm_step @{start}")
@@ -622,13 +893,14 @@ def phase_model_dense() -> None:
     # its prefill at 84, slot 2 idle at the scratch position
     t = torch.tensor([7, nxt, 0], dtype=torch.int32)
     pos = torch.tensor([100, 84, Smax - 1], dtype=torch.int32)
-    lc, _ = tf.lm_decode(cfg, params, cpu, t, pos)
-    lg, _ = tf.lm_decode(cfg, dparams, gpu, t.to(DEV), pos.to(DEV))
-    agree(lg[:2], lc[:2], "lm_decode logits")
-    same_next(lc[:2], lg[:2], "lm_decode")
+    (lc, _), (lg, _) = mp.run(
+        tf.lm_decode, (cfg, rparams, rcache, t.to(mp.ref_dev),
+                       pos.to(mp.ref_dev)),
+        (cfg, dparams, dcache, t.to(DEV), pos.to(DEV)))
+    mp.agree(lg[:2], lc[:2], "lm_decode logits")
+    mp.same_next(lg[:2], lc[:2], "lm_decode")
     caches("lm_decode")
-    log(f"[model] gemma2-27b reduced f32 (dense cache): card vs cpu max abs "
-        f"err {worst:.3e} (tol {MODEL_TOL}); next tokens equal")
+    mp.done()
 
 
 def phase_model_rwkv() -> None:
@@ -1031,8 +1303,9 @@ def time_ms(fn, iters: int = 50) -> float:
 
 
 def device_ms(fn, key: str, iters: int = 50) -> float:
-    """Device time per call of the kernels whose name holds ``key``, from
-    the profiler's CUDA trace (CUPTI), warmed. For a launch shorter than
+    """Device time per call of the kernels whose name holds ``key`` (all
+    of the call's kernels for ``""``), from the profiler's CUDA trace
+    (CUPTI), warmed. For a launch shorter than
     its wrapper's host cost, CUDA events around a Python loop time the
     host's enqueue instead of the kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -1044,7 +1317,8 @@ def device_ms(fn, key: str, iters: int = 50) -> float:
             fn()
         torch.cuda.synchronize()
     total = sum(e.device_time_total for e in prof.key_averages()
-                if key in e.key)
+                if key in e.key
+                and "CUDA" in str(getattr(e, "device_type", "")))
     if total <= 0:
         raise AssertionError(f"no device time for {key} in the trace")
     return total / iters / 1e3
@@ -1145,6 +1419,13 @@ def phase_timing(errs: Errors, launches):
                                if n == name and dt != "sdpa_bf16"),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": l_ms})
+        if name in EARLIER_MS:     # device times: the launch is short
+            d_ms, ld_ms = device_ms(run, "_mma"), device_ms(lib, "")
+            out[-1].update(device_ms=d_ms, library_device_ms=ld_ms)
+            log(f"[timing] {name:22s} device time: kernel {d_ms:.4f} ms, "
+                f"sdpa {ld_ms:.4f} ms")
+            log(f"[timing] {name:22s} earlier {EARLIER_MS[name]:.4f} ms "
+                "(CUDA cores; from PERF.md, not this run)")
         log(f"[timing] {name:22s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
             f"sdpa {l_ms:.4f} ms  bound {bound:.4f} ms ({by}: "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
@@ -1238,15 +1519,21 @@ def phase_flash_timing(errs: Errors):
                    FLASH_BF16_TOL, f"{kind} vs library")
         k_ms, p_ms, l_ms = time_ms(run), time_ms(plain), time_ms(lib)
         n_ms, s_ms = time_ms(nocap), time_ms(sdpa)
+        d_ms, ld_ms = device_ms(run, "_mma"), device_ms(lib, "")
         kinds[kind] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-                           bound_by=by, library_ms=l_ms,
+                           bound_by=by, library_ms=l_ms, device_ms=d_ms,
+                           library_device_ms=ld_ms,
                            ms_without_softcap=n_ms,
                            sdpa_without_softcap_ms=s_ms)
         log(f"[timing] flash_attention {kind:6s} kernel {k_ms:.4f} ms  "
             f"plain {p_ms:.4f} ms  flex {l_ms:.4f} ms  bound {bound:.4f} ms "
             f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
-            f"bound/kernel {bound / k_ms:.3f}; without softcap: kernel "
-            f"{n_ms:.4f} ms, sdpa {s_ms:.4f} ms")
+            f"bound/kernel {bound / k_ms:.3f}, flex/kernel {l_ms / k_ms:.3f}; "
+            f"device time: kernel {d_ms:.4f} ms, flex {ld_ms:.4f} ms; without "
+            f"softcap: kernel {n_ms:.4f} ms, sdpa {s_ms:.4f} ms")
+        log(f"[timing] flash_attention {kind:6s} earlier "
+            f"{EARLIER_MS['flash_attention'][kind]:.4f} ms (CUDA cores; from "
+            "PERF.md, not this run)")
     mean = (lambda key: (kinds["local"][key] + kinds["global"][key]) / 2)
     log(f"[timing] flex_attention vs plain max_abs_err "
         f"{errs.max[('flex_attention', 'bf16')]:.3e}")
@@ -1433,6 +1720,21 @@ def phase_profile_dense(backend) -> None:
         f"(share {attn_ms / wall:.3f})")
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_kernel_mma<128, 1>`` from nvcc's mangled name of a kernel
+    in an anonymous namespace (its template's float, bf16, integer and
+    bool arguments); the mangled name where it has another form."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    end = m.end() + int(m.group(1))
+    tpl = mangled[end:].split("EEv")[0]
+    args = [a.group(1) or ("bf16" if "bfloat" in a.group(0) else "float")
+            for a in re.finditer(r"L[ib](\d+)E|13__nv_bfloat16|(?<=I)f",
+                                 tpl)]
+    return f"{mangled[m.end():end]}<{', '.join(args)}>"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1457,15 +1759,20 @@ def main() -> int:
     log(f"[build] nvcc sm_90a: {len(logs)} sources built in "
         f"{time.monotonic() - t0:.2f}s")
     for src, text in logs.items():
+        fn = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = _kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {src}: {fn}: {line.strip()}")
     t0 = time.monotonic()
     errs = phase_kernels()
     log(f"[kernels] parity done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     phase_model()
     phase_model_dense()
+    phase_model(torch.bfloat16)
+    phase_model_dense(torch.bfloat16)
     phase_model_rwkv()
     log(f"[model] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()

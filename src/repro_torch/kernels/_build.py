@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so a
 build takes seconds. On first use every source not yet built is compiled
 into ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout,
 one ``nvcc`` per source, all started together; the digest covers the
-source and the flags, so an edited source is rebuilt. A failed build
+source, every header under ``csrc/`` and the flags, so an edited source or
+shared header (``attn_mma.cuh``) is rebuilt. A failed build
 raises with nvcc's output: nothing falls back to the plain versions.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
@@ -45,9 +46,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, str]:

@@ -7,57 +7,65 @@
 // each page is read IN PLACE, never gathered into a dense copy. Mask:
 // kv_pos <= q_offset[b] + i and kv_pos < kv_len[b].
 //
-// Work split: one thread block per (q block, kv head h, row b). A block
-// holds kRows = 64 query rows: block_q = kRows / G positions times the G
-// query heads that share kv head h (row r -> position r / G, head r % G, so
-// neighbouring rows sit at neighbouring positions). Each row is owned by
-// D / 32 consecutive threads, each holding 32 of the row's q and
-// accumulator entries in registers (interleaved, d = k * (D/32) + sub, so
-// the threads of a row hit distinct shared-memory banks). Per page the
-// block stages head h's (page, D) K and V slices in shared memory as f32,
-// then every row runs the online softmax token by token in f32, with a
-// 1e-30 floor on the denominator. The block stops at the last page that any
-// of its rows can see, min(kv_len, q_offset + last row + 1); ragged Sq rows
-// are masked in the kernel (no host-side padding).
-//
 // Bound on the H100: a chunk of C queries over a context of N tokens does
 // about 4*C*N*Hq*D flops against about 4*N*Hkv*D*itemsize bytes of KV, so
-// long chunks are compute-bound. This first version does its products on
-// the CUDA cores in f32 (no wgmma, no TMA); its time is in PERF.md.
+// long chunks are compute-bound: on the tensor cores (989 TFLOP/s in
+// bf16), not the f32 CUDA cores (67 TFLOP/s).
+//
+// Two paths, chosen by dtype:
+//
+// - bfloat16 (the serving path): the tensor-core core of attn_mma.cuh, one
+//   block of 4 warps per (64 query rows, kv head h, batch row b), with
+//   the key rows addressed through the table (token t -> page
+//   table[b, t / page], offset t % page, token stride Hkv * D), so any page
+//   size works and a 64-key tile may span several pages or part of one.
+//   cp.async K/V tiles in a 2-stage ring, mma.sync for Q.K^T and P.V, one
+//   online-softmax rescale per tile. Keys past min(kv_len, last causal
+//   position, Np * page) are zero-filled, never read: table[b, Np] is never
+//   touched and stale pages cannot poison a row. The pool and q must be
+//   16-byte aligned (the wrapper checks). Design notes in attn_mma.cuh.
+// - float32 (the parity sweeps and the f32 model phases; TF32 tensor cores
+//   would not hold their 2e-5): the CUDA-core body below. One block per
+//   (q block, kv head h, row b) holds kRows = 64 query rows: block_q =
+//   kRows / G positions times the G query heads that share kv head h (row
+//   r -> position r / G, head r % G). Each row is owned by D / 32
+//   consecutive threads, each holding 32 of the row's q and accumulator
+//   entries in registers (interleaved, d = k * (D/32) + sub, so the
+//   threads of a row hit distinct shared-memory banks). Per page the block
+//   stages head h's (page, D) K and V slices in shared memory (2 * page *
+//   D floats, at most 48 KiB: the wrapper checks), then every row runs
+//   the online softmax token by token in f32.
+//
+// Both paths stop at the last key any row of the block can see,
+// min(kv_len, q_offset + last row + 1), and mask ragged Sq rows in the
+// kernel (no host-side padding); the denominator has a 1e-30 floor.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"
+
 namespace {
 
+using attn_mma::bf16;
+
 constexpr float kNegInf = -1e30f;
-constexpr int kRows = 64;
+using attn_mma::kRows;         // query rows per block, both paths
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// ---- float32: the CUDA-core body --------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kRows * (D / 32))
-paged_flash_kernel(const T* __restrict__ q,          // (B, Hq, Sq, D)
-                   const T* __restrict__ k_pages,    // (P, page, Hkv, D)
-                   const T* __restrict__ v_pages,
-                   const int* __restrict__ table,    // (B, Np)
-                   const int* __restrict__ kv_len,   // (B,)
-                   const int* __restrict__ q_offset, // (B,)
-                   T* __restrict__ o,                // (B, Hq, Sq, D)
-                   int Sq, int Np, int page, int Hkv, int G, int block_q,
-                   float scale) {
+paged_flash_kernel_f32(const float* __restrict__ q,       // (B, Hq, Sq, D)
+                       const float* __restrict__ k_pages, // (P, page, Hkv, D)
+                       const float* __restrict__ v_pages,
+                       const int* __restrict__ table,     // (B, Np)
+                       const int* __restrict__ kv_len,    // (B,)
+                       const int* __restrict__ q_offset,  // (B,)
+                       float* __restrict__ o,             // (B, Hq, Sq, D)
+                       int Sq, int Np, int page, int Hkv, int G,
+                       int block_q, float scale) {
   constexpr int kTpr = D / 32;      // threads per query row
   constexpr int kPer = 32;          // entries of D each thread owns
   const int qblk = blockIdx.x;
@@ -86,7 +94,7 @@ paged_flash_kernel(const T* __restrict__ q,          // (B, Hq, Sq, D)
   float qr[kPer], acc[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    qr[k] = real ? to_f32(q[q_base + k * kTpr + sub]) * scale : 0.f;
+    qr[k] = real ? q[q_base + k * kTpr + sub] * scale : 0.f;
     acc[k] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -101,13 +109,15 @@ paged_flash_kernel(const T* __restrict__ q,          // (B, Hq, Sq, D)
   for (int j = 0; j < n_pages; ++j) {
     const int pid = table[(int64_t)b * Np + j];
     const int n_t = min(page, kv_end - j * page);
-    const T* kp = k_pages + (int64_t)pid * page * tok_stride + (int64_t)h * D;
-    const T* vp = v_pages + (int64_t)pid * page * tok_stride + (int64_t)h * D;
+    const float* kp =
+        k_pages + (int64_t)pid * page * tok_stride + (int64_t)h * D;
+    const float* vp =
+        v_pages + (int64_t)pid * page * tok_stride + (int64_t)h * D;
     __syncthreads();                 // the previous page is consumed
     for (int e = tid; e < n_t * D; e += nthreads) {
       const int t = e / D, d = e % D;
-      k_s[e] = to_f32(kp[t * tok_stride + d]);
-      v_s[e] = to_f32(vp[t * tok_stride + d]);
+      k_s[e] = kp[t * tok_stride + d];
+      v_s[e] = vp[t * tok_stride + d];
     }
     __syncthreads();
     // n_t is uniform over the block, so every lane reaches each shuffle
@@ -138,46 +148,93 @@ paged_flash_kernel(const T* __restrict__ q,          // (B, Hq, Sq, D)
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int k = 0; k < kPer; ++k)
-      o[q_base + k * kTpr + sub] = from_f32<T>(acc[k] / den);
+      o[q_base + k * kTpr + sub] = acc[k] / den;
   }
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k_pages, const void* v_pages,
-            const void* table, const void* kv_len, const void* q_offset,
-            void* o, int B, int Sq, int Np, int page, int Hkv, int G,
-            float scale, cudaStream_t stream) {
-  const int block_q = kRows / G;
-  dim3 grid((Sq + block_q - 1) / block_q, Hkv, B);
-  const size_t smem = (size_t)2 * page * D * sizeof(float);
-  paged_flash_kernel<T, D><<<grid, kRows * (D / 32), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(table),
-      static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
-      static_cast<T*>(o), Sq, Np, page, Hkv, G, block_q, scale);
+// ---- bfloat16: the tensor-core core of attn_mma.cuh ---------------------
+
+template <int D>
+__global__ void __launch_bounds__(attn_mma::kThreads, 2)
+paged_flash_kernel_mma(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k_pages,
+                       const bf16* __restrict__ v_pages,
+                       const int* __restrict__ table,
+                       const int* __restrict__ kv_len,
+                       const int* __restrict__ q_offset,
+                       bf16* __restrict__ o, int Sq, int Np, int page,
+                       int Hkv, int G, int block_q, float scale) {
+  const int qblk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int Hq = Hkv * G;
+  const int qo = q_offset[b];
+  const int i_last = min(qblk * block_q + block_q, Sq) - 1;
+  attn_mma::Block p;
+  p.h = h;
+  p.G = G;
+  p.block_q = block_q;
+  p.qblk = qblk;
+  p.Sq = Sq;
+  p.q_offset = qo;
+  p.kv_lo = 0;
+  p.kv_hi = max(0, min(min(kv_len[b], qo + i_last + 1), Np * page));
+  p.causal = 1;
+  p.window = 0;
+  p.scale = scale;
+  p.softcap = 0.f;
+  const int64_t tok = (int64_t)Hkv * D;
+  const attn_mma::PagedKeys keys{k_pages + (int64_t)h * D,
+                                 v_pages + (int64_t)h * D,
+                                 table + (int64_t)b * Np, page, tok};
+  const attn_mma::Strides qs{(int64_t)Hq * Sq * D, (int64_t)Sq * D, D};
+  const int64_t ob = (int64_t)b * Hq * Sq * D;
+  attn_mma::attend<D, false>(keys, q + ob, qs, o + ob, qs, p);
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k_pages, const void* v_pages,
-             const void* table, const void* kv_len, const void* q_offset,
-             void* o, int B, int Sq, int Np, int page, int Hkv, int G, int D,
-             float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      launch<T, 32>(q, k_pages, v_pages, table, kv_len, q_offset, o, B, Sq,
-                    Np, page, Hkv, G, scale, stream);
-      return 0;
-    case 64:
-      launch<T, 64>(q, k_pages, v_pages, table, kv_len, q_offset, o, B, Sq,
-                    Np, page, Hkv, G, scale, stream);
-      return 0;
-    case 128:
-      launch<T, 128>(q, k_pages, v_pages, table, kv_len, q_offset, o, B, Sq,
-                     Np, page, Hkv, G, scale, stream);
-      return 0;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+struct Args {
+  const void *q, *k_pages, *v_pages, *table, *kv_len, *q_offset;
+  void* o;
+  int B, Sq, Np, page, Hkv, G;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D>
+int launch_f32(const Args& a) {
+  const int block_q = kRows / a.G;
+  dim3 grid((a.Sq + block_q - 1) / block_q, a.Hkv, a.B);
+  const size_t smem = (size_t)2 * a.page * D * sizeof(float);
+  paged_flash_kernel_f32<D><<<grid, kRows * (D / 32), smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k_pages),
+      static_cast<const float*>(a.v_pages),
+      static_cast<const int*>(a.table), static_cast<const int*>(a.kv_len),
+      static_cast<const int*>(a.q_offset), static_cast<float*>(a.o), a.Sq,
+      a.Np, a.page, a.Hkv, a.G, block_q, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_mma(const Args& a) {
+  constexpr size_t smem = attn_mma::smem_bytes<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_flash_kernel_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int block_q = kRows / a.G;
+  dim3 grid((a.Sq + block_q - 1) / block_q, a.Hkv, a.B);
+  paged_flash_kernel_mma<D><<<grid, attn_mma::kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k_pages),
+      static_cast<const bf16*>(a.v_pages), static_cast<const int*>(a.table),
+      static_cast<const int*>(a.kv_len), static_cast<const int*>(a.q_offset),
+      static_cast<bf16*>(a.o), a.Sq, a.Np, a.page, a.Hkv, a.G, block_q,
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(int dtype, const Args& a) {
+  if (dtype == 0) return launch_f32<D>(a);
+  if (dtype == 1) return launch_mma<D>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -187,26 +244,23 @@ extern "C" {
 // Query rows one block holds (the wrapper derives block_q = rows / G).
 int paged_flash_rows_per_block() { return kRows; }
 
-// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128}; G <= 64.
-// Returns cudaGetLastError() after the launch (0 on success).
+// dtype: 0 = float32 (CUDA-core body), 1 = bfloat16 (tensor-core core);
+// D in {32, 64, 128}; G <= 64. Returns the CUDA error of the launch (0 on
+// success).
 int paged_flash_attention(int dtype, const void* q, const void* k_pages,
                           const void* v_pages, const void* table,
                           const void* kv_len, const void* q_offset, void* o,
                           int B, int Sq, int Np, int page, int Hkv, int G,
                           int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
-  if (dtype == 0)
-    rc = launch_d<float>(q, k_pages, v_pages, table, kv_len, q_offset, o, B,
-                         Sq, Np, page, Hkv, G, D, scale, s);
-  else if (dtype == 1)
-    rc = launch_d<__nv_bfloat16>(q, k_pages, v_pages, table, kv_len,
-                                 q_offset, o, B, Sq, Np, page, Hkv, G, D,
-                                 scale, s);
-  else
-    rc = (int)cudaErrorInvalidValue;
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  const Args a{q, k_pages, v_pages, table, kv_len, q_offset, o, B, Sq,
+               Np, page, Hkv, G, scale,
+               static_cast<cudaStream_t>(stream)};
+  switch (D) {
+    case 32: return launch<32>(dtype, a);
+    case 64: return launch<64>(dtype, a);
+    case 128: return launch<128>(dtype, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -14,12 +14,24 @@ allocated with the query's memory layout.
 
 What bounds it on the H100: a chunk of C queries over N visible keys does
 about ``4 * C * N * Hq * D`` flops against ``2 * Skv * Hkv * D *
-itemsize`` bytes of KV, so prefill chunks are compute-bound. The simple
-design keeps 64 query rows per block in registers, stages 32-key tiles of
-K and V in shared memory as f32 and runs the products on the CUDA cores;
-each block walks only the keys its rows can see (window start to causal
-end, never past ``Skv``) and masks ragged Sq rows itself. PERF.md records
-its time against the bound.
+itemsize`` bytes of KV, so prefill chunks are compute-bound, and the
+tensor cores (989 TFLOP/s in bf16) are the resource. The kernel has two
+paths, chosen by dtype:
+
+- **bfloat16** (every serving path) runs the tensor-core core shared with
+  the paged kernel (``csrc/attn_mma.cuh``): blocks of 4 warps and 64 query
+  rows, Q held as ``ldmatrix`` fragments, 64-key K/V tiles copied with
+  ``cp.async`` into a 2-stage shared-memory ring, ``mma.sync`` bf16 products
+  with f32 accumulation, the online softmax in f32 registers. Its copies
+  need each operand 16-byte aligned with (b, h, s) strides that are
+  multiples of 8 elements; anything else raises (no fallback).
+- **float32** (the parity sweeps and the f32 model phases; TF32 would not
+  hold their 2e-5) keeps the CUDA-core body: 64 query rows per block in
+  registers, 32-key tiles in shared memory, f32 FMAs.
+
+Both walk only the keys their rows can see (window start to causal end,
+never past ``Skv``) and mask ragged Sq rows themselves. PERF.md records the
+times against the bound.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); on a CUDA tensor it
@@ -79,6 +91,15 @@ def _check(q, k, v, window, softcap, q_offset):
         raise ValueError(f"window {window} must be positive")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap {softcap} must be positive")
+    if q.dtype == torch.bfloat16:    # the tensor-core path's cp.async rows
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"bf16 {name} must start on a 16-byte "
+                                 "boundary")
+            if any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+                   if n > 1):
+                raise ValueError(f"bf16 {name} strides {t.stride()} must be "
+                                 "multiples of 8 elements")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -88,7 +109,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     ``Sq`` and ``Skv`` may be any length; rows past ``Skv - q_offset``
     (padded lanes of a chunk) see keys up to ``Skv - 1`` only. The operands
-    may be strided views with a contiguous last dimension."""
+    may be strided views with a contiguous last dimension (in bf16, 16-byte
+    aligned with strides that are multiples of 8 elements)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, q_offset=q_offset)

@@ -12,10 +12,21 @@ point of the kernel). Mask: ``kv_pos <= q_offset + i`` and
 What bounds it on the H100: a chunk of C queries over a context of N
 tokens does about ``4 * C * N * Hq * D`` flops against about
 ``4 * N * Hkv * D * itemsize`` bytes of KV, so at main-path chunk sizes it
-is compute-bound. The simple design keeps 64 query rows per block in
-registers and runs the products on the CUDA cores in f32; each block stops
-at the last page any of its rows can see and masks ragged Sq rows itself.
-PERF.md records its time against the bound.
+is compute-bound, and the tensor cores are the resource. The kernel has
+two paths, chosen by dtype:
+
+- **bfloat16** (the serving path) runs the tensor-core core shared with
+  the dense kernel (``csrc/attn_mma.cuh``), its key rows addressed through
+  the block table (any page size; a 64-key tile may span pages), copied
+  with ``cp.async`` into a 2-stage ring, ``mma.sync`` products, one
+  online-softmax rescale per tile. Keys past what any row may see are
+  zero-filled, never read. q and the pools must start 16-byte aligned.
+- **float32** (the parity sweeps and the f32 model phases) keeps the
+  CUDA-core body, which stages one page of K and V in shared memory as
+  f32: ``2 * page * D * 4`` bytes, at most 48 KiB (checked, for f32 only).
+
+Both stop at the last key any of their rows can see and mask ragged Sq
+rows themselves. PERF.md records the times against the bound.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.paged_flash_attention_ref`); on a CUDA
@@ -34,7 +45,7 @@ from repro_torch.kernels.ref import paged_flash_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 48 * 1024            # the f32 path's staged page
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 
 
@@ -60,8 +71,8 @@ def _check(q, k_pages, v_pages, block_table, kv_len, q_offset):
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {_HEAD_DIMS}")
-    if 2 * page * D * 4 > _SMEM_LIMIT:
-        raise ValueError(f"page={page}, D={D} needs more than 48 KiB of "
+    if q.dtype == torch.float32 and 2 * page * D * 4 > _SMEM_LIMIT:
+        raise ValueError(f"f32 page={page}, D={D} needs more than 48 KiB of "
                          "shared memory")
     if block_table.dim() != 2 or block_table.shape[0] != B or \
             tuple(kv_len.shape) != (B,) or tuple(q_offset.shape) != (B,):
@@ -79,6 +90,11 @@ def _check(q, k_pages, v_pages, block_table, kv_len, q_offset):
     for t in (k_pages, v_pages):
         if t.dtype != q.dtype:
             raise TypeError(f"pool dtype {t.dtype} != q {q.dtype}")
+    if q.dtype == torch.bfloat16:    # the tensor-core path's cp.async rows
+        for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"bf16 {name} must start on a 16-byte "
+                                 "boundary")
 
 
 def paged_flash_attention(q, k_pages, v_pages, block_table, kv_len,

@@ -131,3 +131,64 @@ def test_flash_attention_rejects_devices_without_a_kernel():
     k = torch.empty((1, 1, 4, 32), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fa_mod.flash_attention(q, k, k)
+
+
+# Tile-edge shapes the tensor-core kernel is held to on the card (64-row
+# query blocks, 64-key tiles): Sq and Skv off multiples of 64, windows
+# that start mid-tile, G of 1, 2, 4 and 8, D of 32, 64 and 128, rows past
+# the cache's end, a non-causal window. (B, Hq, Hkv, Sq, Skv, D), kwargs.
+EDGE_CASES = [
+    ((1, 2, 2, 1, 77, 64), dict(q_offset=76)),
+    ((2, 4, 2, 15, 100, 32), dict(q_offset=85, window=40)),
+    ((1, 8, 2, 17, 129, 128), dict(q_offset=112, softcap=30.0)),
+    ((1, 8, 1, 63, 190, 64), dict(q_offset=127, window=100, softcap=50.0)),
+    ((1, 4, 2, 65, 65, 128), dict(q_offset=0)),
+    ((1, 4, 1, 200, 333, 64), dict(q_offset=133, window=77)),
+    ((1, 2, 1, 65, 150, 32), dict(causal=False, window=50)),
+    ((1, 4, 4, 17, 70, 64), dict(q_offset=60)),
+]
+
+
+@pytest.mark.parametrize("shape,kw", EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_ref_matches_jax_tile_edges(shape, kw, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _both(_case(sum(shape), *shape), dtype)
+    got = tref.flash_attention_ref(tq, tk, tv, **kw)
+    assert got.shape == tq.shape and got.dtype == dtype
+    _close(got, jref.flash_attention_ref(jq, jk, jv, **kw),
+           F32_TOL if dtype == torch.float32 else BF16_TOL)
+
+
+def _bf16_misaligned(shape):
+    """A contiguous bf16 tensor that starts 2 bytes past an aligned one."""
+    n = int(np.prod(shape))
+    return torch.empty(n + 8, dtype=torch.bfloat16)[1:n + 1].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_check_accepts_main_path_views(dtype):
+    """The gemma2 chunk as the dense path hands it over: a (B, Sq, Hq, D)
+    query and a slot of the (L, B, Smax, Hkv, D) cache, as views."""
+    q = torch.empty((1, 512, 32, 128), dtype=dtype).transpose(1, 2)
+    cache = torch.empty((2, 3, 6144, 16, 128), dtype=dtype)
+    k = cache[1, 2:3].transpose(1, 2)
+    fa_mod._check(q, k, k, 4096, 50.0, 4096)
+    fa_mod._check(q.contiguous(), k.contiguous(), k, None, None, 0)
+
+
+def test_flash_check_rejects_what_the_bf16_copies_cannot_read():
+    q = torch.empty((1, 4, 16, 64), dtype=torch.bfloat16)
+    k = torch.empty((1, 2, 80, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_mod._check(_bf16_misaligned(q.shape), k, k, None, None, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_mod._check(q, k, _bf16_misaligned(k.shape), None, None, 64)
+    odd = torch.empty((1, 2, 80, 66), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa_mod._check(q, odd, k, None, None, 64)
+    # float32 runs the CUDA-core body, which reads element by element
+    f = torch.empty((1, 2, 80, 66))[..., :64]
+    fa_mod._check(q.float(), f, f, None, None, 64)
+    wide = torch.empty((1, 4, 16, 48), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_mod._check(wide, wide[:, :2], wide[:, :2], None, None, 0)

@@ -19,6 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_flash_attention as pfa
 from repro_torch.kernels import ref as tref
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2
@@ -274,3 +275,78 @@ def test_wrappers_count_only_kernel_launches():
     test_ops_decode_read_only_matches_jax()
     assert (paged_attention.launches, paged_attention_fused.launches,
             paged_flash_attention.launches) == before
+
+
+# Tile-edge shapes the tensor-core kernel is held to on the card (64-row
+# query blocks, 64-key tiles read through the table): Sq off multiples of
+# 64, kv_len mid-page and off multiples of 64, G of 1, 2, 4 and 8, D of
+# 32, 64 and 128, page of 8, 16 and 32.
+# (B, Hq, Hkv, D, page, P, Np, Sq), kv_len per row
+PREFILL_EDGE_CASES = [
+    ((2, 2, 2, 64, 8, 24, 10, 1), (73, 1)),
+    ((2, 4, 2, 32, 16, 20, 6, 15), (90, 15)),
+    ((1, 8, 2, 128, 32, 8, 5, 17), (147,)),
+    ((2, 8, 1, 64, 8, 40, 12, 63), (91, 70)),
+    ((1, 4, 2, 64, 16, 16, 10, 65), (150,)),
+    ((1, 4, 1, 128, 32, 12, 9, 200), (263,)),
+]
+
+
+@pytest.mark.parametrize("shape,kv_len", PREFILL_EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_attention_ref_matches_jax_tile_edges(shape, kv_len,
+                                                          dtype):
+    B, Hq, Hkv, D, page, P, Np, Sq = shape
+    rng = np.random.default_rng(sum(shape))
+    q = rng.standard_normal((B, Hq, Sq, D), np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    table = rng.choice(P, (B, Np), replace=False).astype(np.int32)
+    kv = np.asarray(kv_len, np.int32)
+    qo = (kv - Sq).astype(np.int32)
+    jq, tq = _both(q, dtype)
+    jk, tk = _both(kp, dtype)
+    jv, tv = _both(vp, dtype)
+    want = jref.paged_flash_attention_ref(jq, jk, jv, jnp.asarray(table),
+                                          jnp.asarray(kv), jnp.asarray(qo))
+    got = tref.paged_flash_attention_ref(tq, tk, tv, torch.from_numpy(table),
+                                         torch.from_numpy(kv),
+                                         torch.from_numpy(qo))
+    assert got.dtype == dtype and got.shape == (B, Hq, Sq, D)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol)
+
+
+def _paged_args(dtype, *, Sq=256, Hq=32, Hkv=8, D=64, page=32, P=80, Np=66):
+    """The main path's paged prefill pack (C 256 over llama3.2-1b's pool)."""
+    i32 = torch.int32
+    return (torch.empty((1, Hq, Sq, D), dtype=dtype),
+            torch.empty((P, page, Hkv, D), dtype=dtype),
+            torch.empty((P, page, Hkv, D), dtype=dtype),
+            torch.zeros((1, Np), dtype=i32), torch.tensor([1280], dtype=i32),
+            torch.tensor([1024], dtype=i32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_flash_check_accepts_main_path(dtype):
+    pfa._check(*_paged_args(dtype))
+
+
+def test_paged_flash_check_rejects_and_limits_shared_memory_to_f32():
+    q, kp, vp, table, kv_len, q_offset = _paged_args(torch.bfloat16)
+    n = q.numel()
+    odd = torch.empty(n + 8, dtype=torch.bfloat16)[1:n + 1].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pfa._check(odd, kp, vp, table, kv_len, q_offset)
+    n = kp.numel()
+    odd = torch.empty(n + 8, dtype=torch.bfloat16)[1:n + 1].view(kp.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        pfa._check(q, kp, odd, table, kv_len, q_offset)
+    with pytest.raises(ValueError, match="head dim"):
+        pfa._check(*_paged_args(torch.bfloat16, D=48))
+    # page * D above the f32 body's 48 KiB staging: fine in bf16, which
+    # streams 64-key tiles whatever the page size
+    big = dict(D=128, page=128, P=12, Np=11)
+    pfa._check(*_paged_args(torch.bfloat16, **big))
+    with pytest.raises(ValueError, match="48 KiB"):
+        pfa._check(*_paged_args(torch.float32, **big))

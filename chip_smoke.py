@@ -9,10 +9,15 @@ Phases, in order; any failure exits non-zero:
 3. kernels      holds each kernel against its plain PyTorch version on the
                 card: the sweeps of tests/test_kernels.py plus the
                 main-path shapes, in float32 (atol 2e-5) and bfloat16
-                (decode atol 3e-2; both flash kernels 2e-2 times the
-                output's largest magnitude, capped at 2e-2, the main-path
-                errors logged beside it); fused pool writes must be
-                exact; flash rows that see no key are not compared. wkv6:
+                (every attention kernel at 2e-2 times the output's largest
+                magnitude, capped at 2e-2, the main-path errors logged
+                beside it); fused pool writes must be bit-exact; flash
+                rows that see no key are not compared. Decode also at
+                lengths on the split edges and at maxp * page, a
+                16,384-token lane beside short ones, G 8 at D 128, B 1,
+                idle lanes (they output v_new), and poisoned: NaN at every
+                pool position no lane may read, the fused slot included
+                before the write. wkv6:
                 test_wkv6_shapes at f32 atol 5e-4, strong decay at 1e-4
                 plus 1e-4 of the largest output, T = 1, a strided layout,
                 and the main-path prefill with bf16 r/k/v at 1e-5 of the
@@ -47,10 +52,16 @@ Phases, in order; any failure exits non-zero:
                 (SDPA; flex_attention, compiled, for the softcapped
                 flash_attention; none computes wkv6) on the same main-path
                 inputs (CUDA events, warmed), and the bound from bytes and
-                operations; the two attention kernels redesigned for the
-                tensor cores also carry their profiler device times, and
-                their earlier CUDA-core times (from PERF.md) are logged
-7. profile      device time by kernel over one full-width mixed iteration
+                operations; the paged kernels also carry their profiler
+                device times, and the times of the attention kernels
+                before their redesigns (from PERF.md) are logged. The two
+                decode kernels run each call on the next of 6 tables over
+                disjoint pages (~120 MB a rotation against the 50 MB L2),
+                SDPA on as many dense copies (cold L2), and once more on
+                one table (warm L2); then one 16,384-token lane beside SDPA
+                over the same keys
+7. profile      device time by kernel over one full-width mixed iteration,
+                and paged_attention_fused's device time per call
 8. serve-rwkv   rwkv6-1.6b at full width in bf16 through model_zoo: 8
                 sessions of 1,024-token prompts in one prefill, 16 greedy
                 decode steps, a 64-token tool output per session resumed
@@ -79,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import os
 import re
@@ -103,7 +115,7 @@ from repro_torch.engine.torch_runner import TorchBackend  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention, paged_attention_fused)
+    _split_plan, paged_attention, paged_attention_fused)
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
@@ -141,12 +153,14 @@ KERNELS = {
         fn=wkv6, source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/wkv6.py:70"),
 }
-# the CUDA-core times of the two kernels redesigned for the tensor cores,
-# copied from PERF.md's kernel table (this script's timing phase on an
-# H100 80GB HBM3 at 700 W, before the redesign): logged beside the new
-# times on a line of their own, never put in the kernels JSON, whose
-# numbers are all measured in the run that prints them
-EARLIER_MS = {"paged_flash_attention": 0.4225,
+# the times of the four attention kernels before their redesigns (the two
+# prefill kernels on the CUDA cores; the two decode kernels as one block
+# per (lane, kv head), timed with warm L2), copied from PERF.md's kernel
+# table (this script's timing phase on an H100 80GB HBM3 at 700 W): logged
+# beside the new times on a line of their own, never put in the kernels
+# JSON, whose numbers are all measured in the run that prints them
+EARLIER_MS = {"paged_attention_fused": 0.2499, "paged_attention": 0.2234,
+              "paged_flash_attention": 0.4225,
               "flash_attention": {"local": 3.0971, "global": 3.4152}}
 MAIN_PATH = ("paged_attention_fused", "paged_flash_attention")
 DENSE_PATH = ("flash_attention",)
@@ -208,31 +222,73 @@ def _fused_slots(table, lengths, page):
     return wp, wo
 
 
-def _check_decode(errs, gen, dtype, tol, B, Hq, Hkv, D, page, P, maxp,
-                  lengths=None):
+def _bits(t):
+    """The tensor's bits, so that NaN compares equal to itself."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _poison_decode(pages, table, limit):
+    """NaN at every pool position outside rows [0, limit[b]) of each lane's
+    table: the pages of no table, the tails past each limit, and (fused,
+    limit = length - 1) the slot the new token is written to."""
+    page = pages.shape[1]
+    seen = torch.zeros(pages.shape[:2], dtype=torch.bool, device=DEV)
+    for b in range(table.shape[0]):
+        t = torch.arange(max(int(limit[b]), 0), device=DEV)
+        seen[table[b, t // page].long(), t % page] = True
+    nan = torch.tensor(float("nan"), dtype=pages.dtype, device=DEV)
+    return torch.where(seen[..., None, None], pages, nan)
+
+
+def _check_decode(errs, gen, dtype, B, Hq, Hkv, D, page, P, maxp,
+                  lengths=None, poison=False):
+    """Both decode kernels against the plain version on the same inputs,
+    within ``_attn_tol``; the fused pool writes bit-exact. With ``poison``
+    the kernels see NaN at every pool position no lane may read (see
+    ``_poison_decode``; the plain version on the clean inputs is the
+    reference). Returns (err, tol) of the read-only and the fused call."""
     q, kp, vp, table, lengths = _decode_case(gen, B, Hq, Hkv, D, page, P,
                                              maxp, dtype, lengths=lengths)
-    what = f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} maxp={maxp}"
-    errs.check("paged_attention", dtype,
-               paged_attention(q, kp, vp, table, lengths),
-               ref.paged_attention_ref(q, kp, vp, table, lengths), tol, what)
     k_new = _randn(gen, (B, Hkv, D), dtype)
     v_new = _randn(gen, (B, Hkv, D), dtype)
     wp, wo = _fused_slots(table, lengths, page)
+    slot = (wp.long(), wo.long())
     kw, vw = kp.clone(), vp.clone()
-    kw[wp.long(), wo.long()] = k_new
-    vw[wp.long(), wo.long()] = v_new
-    want = ref.paged_attention_ref(q, kw, vw, table, lengths)
-    o, k2, v2 = paged_attention_fused(q, kp, vp, table, lengths, k_new,
-                                      v_new, wp, wo)
-    errs.check("paged_attention_fused", dtype, o, want, tol, what)
-    errs.exact("paged_attention_fused", k2, kw, what)
-    errs.exact("paged_attention_fused", v2, vw, what)
+    kw[slot], vw[slot] = k_new, v_new
+    what = (f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} maxp={maxp}"
+            + (" poisoned" if poison else ""))
+    out = []
+    for name, want in (
+            ("paged_attention",
+             ref.paged_attention_ref(q, kp, vp, table, lengths)),
+            ("paged_attention_fused",
+             ref.paged_attention_ref(q, kw, vw, table, lengths))):
+        fused = name == "paged_attention_fused"
+        limit = lengths - int(fused)
+        k_in, v_in = ((_poison_decode(kp, table, limit),
+                       _poison_decode(vp, table, limit)) if poison
+                      else (kp.clone(), vp.clone()))
+        if fused:
+            k_want, v_want = k_in.clone(), v_in.clone()
+            k_want[slot], v_want[slot] = k_new, v_new
+            got, k2, v2 = paged_attention_fused(q, k_in, v_in, table,
+                                                lengths, k_new, v_new, wp, wo)
+            errs.exact(name, _bits(k2), _bits(k_want), what)
+            errs.exact(name, _bits(v2), _bits(v_want), what)
+        else:
+            got = paged_attention(q, k_in, v_in, table, lengths)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name} {what}: non-finite output")
+        tol = _attn_tol(dtype, want)
+        out.append((errs.check(name, dtype, got, want, tol,
+                               f"{what} tol={tol:.3e}"), tol))
+    return out
 
 
-def _check_idle_lanes(errs, gen, dtype, tol):
+def _check_idle_lanes(errs, gen, dtype):
     """Two live lanes next to idle lanes (length 1, all-scratch table, all
-    writing scratch slot 0): live outputs right, non-scratch pages exact."""
+    writing scratch slot 0): live outputs right, idle ones v_new,
+    non-scratch pages exact."""
     B, Hq, Hkv, D, page, P, maxp = 6, 32, 8, 64, 32, 65, 8
     scratch = P - 1
     q, kp, vp, _, _ = _decode_case(gen, B, Hq, Hkv, D, page, P, maxp, dtype)
@@ -249,9 +305,11 @@ def _check_idle_lanes(errs, gen, dtype, tol):
     want = ref.paged_attention_ref(q[:2], kw, vw, table[:2], lengths[:2])
     o, k2, v2 = paged_attention_fused(q, kp, vp, table, lengths, k_new,
                                       v_new, wp, wo)
-    errs.check("paged_attention_fused", dtype, o[:2], want, tol, "idle lanes")
-    if not torch.isfinite(o.float()).all():
-        raise AssertionError("idle lanes produced non-finite outputs")
+    errs.check("paged_attention_fused", dtype, o[:2], want,
+               _attn_tol(dtype, want), "idle lanes")
+    idle = v_new[2:].repeat_interleave(Hq // Hkv, dim=1)
+    errs.check("paged_attention_fused", dtype, o[2:], idle,
+               _attn_tol(dtype, idle), "idle lanes output v_new")
     errs.exact("paged_attention_fused", k2[:scratch], kw[:scratch],
                "idle lanes")
     errs.exact("paged_attention_fused", v2[:scratch], vw[:scratch],
@@ -276,7 +334,7 @@ def _prefill_case(gen, B, Hq, Hkv, D, page, P, Np, Sq, dtype, *,
 def _check_prefill(errs, gen, dtype, B, Hq, Hkv, D, page, P, Np, Sq, **kw):
     args = _prefill_case(gen, B, Hq, Hkv, D, page, P, Np, Sq, dtype, **kw)
     want = ref.paged_flash_attention_ref(*args)
-    tol = _flash_tol(dtype, want)
+    tol = _attn_tol(dtype, want)
     what = (f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={page} Np={Np} Sq={Sq} "
             f"tol={tol}")
     err = errs.check("paged_flash_attention", dtype,
@@ -326,12 +384,13 @@ def _flash_inputs(gen, B, Hq, Hkv, Sq, Skv, D, dtype, *, model_layout=False,
     return (q * q_scale).to(dtype), k, v
 
 
-def _flash_tol(dtype, want):
-    """Both flash attention kernels (dense and paged). f32: 2e-5 absolute.
-    bf16: 2e-2, the JAX test's own tolerance, but relative to the output's
-    scale: at the main-path chunks the outputs (softmax averages over
-    hundreds to thousands of keys) are themselves a few 1e-2, so an
-    absolute 2e-2 would pass an output that merely has their magnitude."""
+def _attn_tol(dtype, want):
+    """Every attention kernel (dense and paged flash, paged decode). f32:
+    2e-5 absolute. bf16: 2e-2, the JAX flash test's own tolerance, but
+    relative to the output's scale, capped at 2e-2: at the main-path shapes
+    the outputs (softmax averages over hundreds to thousands of keys) are
+    themselves a few 1e-2, so an absolute 2e-2 (or the decode sweeps' old
+    3e-2) would pass an output that merely has their magnitude."""
     if dtype == torch.float32:
         return F32_TOL
     return FLASH_BF16_TOL * min(1.0, want.float().abs().max().item())
@@ -346,7 +405,7 @@ def _check_flash(errs, gen, dtype, B, Hq, Hkv, Sq, Skv, D, *,
         raise AssertionError(f"flash_attention: non-finite output {kw}")
     seen = _seen_rows(Sq, Skv, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)[:, :, seen]
-    tol = _flash_tol(dtype, want)
+    tol = _attn_tol(dtype, want)
     what = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} {kw} "
             f"q_scale={q_scale} tol={tol}")
     err = errs.check("flash_attention", dtype, got[:, :, seen], want, tol,
@@ -551,7 +610,7 @@ def _edge_sweeps(errs, gen, dtype):
         want = ref.paged_flash_attention_ref(*args)
         errs.check("paged_flash_attention", dtype,
                    paged_flash_attention(*args), want,
-                   _flash_tol(dtype, want), f"edge {shape} kv_len={kv_len}")
+                   _attn_tol(dtype, want), f"edge {shape} kv_len={kv_len}")
     for shape, kv_len in (((2, 8, 2, 64, 16, 40, 12, 65), (150, 97)),
                           ((1, 32, 8, 64, 32, 80, 66, 256), (1280,))):
         args = _paged_edge(gen, dtype, shape, kv_len)
@@ -560,7 +619,7 @@ def _edge_sweeps(errs, gen, dtype):
             raise AssertionError(f"paged_flash_attention poisoned {shape}: "
                                  "non-finite output")
         want = ref.paged_flash_attention_ref(*args)
-        tol = _flash_tol(dtype, want)
+        tol = _attn_tol(dtype, want)
         err = errs.check("paged_flash_attention", dtype, got, want, tol,
                          f"poisoned {shape} kv_len={kv_len}")
         log(f"[kernels] paged_flash_attention {dtype} poisoned {shape} "
@@ -579,28 +638,65 @@ def _edge_sweeps(errs, gen, dtype):
                                  "non-finite output")
         want = ref.flash_attention_ref(q, k, v, **kw)
         errs.check("flash_attention", dtype, got, want,
-                   _flash_tol(dtype, want), f"poisoned Sq={Sq} Skv={Skv} {kw}")
+                   _attn_tol(dtype, want), f"poisoned Sq={Sq} Skv={Skv} {kw}")
+
+
+# (B, Hq, Hkv, D, page, P, maxp): the sweeps of tests/test_kernels.py, then
+# G 8 at D 128, B 1 (at G 8 and at the main path's width) and D 32
+DECODE_SWEEP = [(4, 8, 2, 64, 32, 64, 8), (2, 4, 4, 128, 16, 32, 4),
+                (1, 16, 8, 64, 32, 16, 6), (3, 6, 2, 64, 8, 40, 10),
+                (2, 4, 2, 64, 16, 16, 4), (2, 16, 2, 128, 32, 40, 8),
+                (1, 8, 1, 128, 16, 40, 12), (1, 32, 8, 64, 32, 600, 64),
+                (2, 8, 2, 32, 32, 16, 4)]
+# the main path: Hq 32, Hkv 8, D 64, page 32, 8 lanes of up to 64 pages
+DECODE_MAIN = (8, 32, 8, 64, 32, 600, 64)
+# one 16,384-token lane (maxp 512) next to short ones
+DECODE_LONG = ((4, 32, 8, 64, 32, 2100, 512), [16384, 5, 129, 1000])
+
+
+def _decode_edges():
+    """Main-path lengths at the split edges (k * split and k * split +- 1
+    for the read-only limit, the length, and the fused one, length - 1)
+    and at maxp * page."""
+    B, _, Hkv, _, page, _, maxp = DECODE_MAIN
+    pps, _ = _split_plan(B, Hkv, maxp, page)
+    k = pps * page
+    return [k - 1, k, k + 1, k + 2, 2 * k - 1, 2 * k + 1, 3 * k, maxp * page]
+
+
+def _decode_sweeps(errs, gen, dtype):
+    for shape in DECODE_SWEEP:
+        _check_decode(errs, gen, dtype, *shape)
+    ((e_ro, t_ro), (e_f, t_f)) = _check_decode(errs, gen, dtype, *DECODE_MAIN)
+    log(f"[kernels] paged_attention {str(dtype)[6:]} main path: max abs err "
+        f"{e_ro:.3e} (tol {t_ro:.3e}); fused {e_f:.3e} (tol {t_f:.3e})")
+    _check_decode(errs, gen, dtype, *DECODE_MAIN,
+                  lengths=[2048, 1, 33, 1024, 1500, 700, 64, 1999])
+    _check_decode(errs, gen, dtype, *DECODE_MAIN, lengths=_decode_edges())
+    _check_decode(errs, gen, dtype, *DECODE_LONG[0], lengths=DECODE_LONG[1])
+    for shape, lengths in ((DECODE_MAIN, [129, 1, 2048, 700, 128, 1377, 64,
+                                          257]),
+                           ((3, 6, 2, 64, 8, 40, 10), [80, 1, 33]),
+                           DECODE_LONG):
+        ((e_ro, t_ro), (e_f, t_f)) = _check_decode(
+            errs, gen, dtype, *shape, lengths=lengths, poison=True)
+        log(f"[kernels] paged_attention {str(dtype)[6:]} poisoned "
+            f"B={shape[0]} G={shape[1] // shape[2]} page={shape[4]} "
+            f"lengths={lengths}: max abs err {e_ro:.3e} (tol {t_ro:.3e}); "
+            f"fused {e_f:.3e} (tol {t_f:.3e})")
+    _check_idle_lanes(errs, gen, dtype)
 
 
 def phase_kernels() -> Errors:
     errs = Errors()
     gen = torch.Generator(device=DEV).manual_seed(7)
-    decode_sweep = [(4, 8, 2, 64, 32, 64, 8), (2, 4, 4, 128, 16, 32, 4),
-                    (1, 16, 8, 64, 32, 16, 6), (3, 6, 2, 64, 8, 40, 10),
-                    (2, 4, 2, 64, 16, 16, 4)]
     prefill_sweep = [(2, 4, 2, 64, 32, 8, 4, 64), (1, 8, 8, 64, 16, 6, 6, 64),
                      (2, 2, 1, 128, 32, 8, 4, 32),
                      (1, 4, 2, 64, 32, 8, 8, 96), (2, 4, 2, 64, 32, 8, 4, 33),
                      (2, 4, 2, 64, 32, 8, 4, 7), (1, 4, 2, 64, 32, 8, 4, 1),
                      (2, 4, 2, 32, 32, 8, 4, 64)]
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for shape in decode_sweep:
-            _check_decode(errs, gen, dtype, tol, *shape)
-        # main path: Hq 32, Hkv 8, D 64, page 32, contexts up to 2k
-        _check_decode(errs, gen, dtype, tol, 8, 32, 8, 64, 32, 600, 64)
-        _check_decode(errs, gen, dtype, tol, 8, 32, 8, 64, 32, 600, 64,
-                      lengths=[2048, 1, 33, 1024, 1500, 700, 64, 1999])
-        _check_idle_lanes(errs, gen, dtype, tol)
+    for dtype in (torch.float32, torch.bfloat16):
+        _decode_sweeps(errs, gen, dtype)
         for shape in prefill_sweep:
             _check_prefill(errs, gen, dtype, *shape)
         # main path: chunks up to the token budget over up to 2k context
@@ -1336,50 +1432,109 @@ def _dense_kv(pages, table):
     return pages[table.long()].reshape(B, Np * page, Hkv, D).transpose(1, 2)
 
 
+def _cycle(fns):
+    """A callable that calls the next of ``fns`` each time, round robin:
+    where the sets of inputs together exceed the card's 50 MB L2, every
+    call finds its inputs cold, as a model layer finds its KV."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
+ROTATION = 6        # decode tables over disjoint pages: 6 x ~20 MB of KV
+
+
+def _decode_rows(gen, F):
+    """The two decode kernels at the main path (8 lanes at 1,090-1,377,
+    Hq 32, Hkv 8, D 64, page 32, bf16), each call on the next of
+    ROTATION tables over disjoint pages of one 4,096-page pool, and SDPA
+    on the next of as many dense copies (cold L2)."""
+    bf16, item = torch.bfloat16, 2
+    B, Hq, Hkv, D, page, maxp, P = 8, 32, 8, 64, 32, 64, 4096
+    lens = torch.tensor([1090, 1131, 1160, 1188, 1216, 1270, 1310, 1377],
+                        device=DEV).int()
+    q, kp, vp, _, lens = _decode_case(gen, B, Hq, Hkv, D, page, P, maxp,
+                                      bf16, lengths=lens)
+    k_new = _randn(gen, (B, Hkv, D), bf16)
+    v_new = _randn(gen, (B, Hkv, D), bf16)
+    perm = torch.randperm(P, generator=gen, device=DEV)
+    tables = [perm[r * B * maxp:(r + 1) * B * maxp].reshape(B, maxp).int()
+              .contiguous() for r in range(ROTATION)]
+    slots = [_fused_slots(t, lens, page) for t in tables]
+    for wp, wo in slots:     # the slots hold the new tokens, so every
+        kp[wp.long(), wo.long()] = k_new     # version sees the same pool
+        vp[wp.long(), wo.long()] = v_new
+    dense = [(_dense_kv(kp, t), _dense_kv(vp, t)) for t in tables]
+    mask = (torch.arange(maxp * page, device=DEV)[None]
+            < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    n_kv = float(lens.sum().item())
+    libs = [lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
+        for kd, vd in dense]
+    rows = []
+    for name in ("paged_attention_fused", "paged_attention"):
+        fused = name == "paged_attention_fused"
+        if fused:
+            calls = [lambda t=t, wp=wp, wo=wo: paged_attention_fused(
+                q, kp, vp, t, lens, k_new, v_new, wp, wo)[0]
+                for t, (wp, wo) in zip(tables, slots)]
+
+            def plain(t, wp, wo):
+                kp[wp.long(), wo.long()] = k_new
+                vp[wp.long(), wo.long()] = v_new
+                return ref.paged_attention_ref(q, kp, vp, t, lens)
+            plains = [lambda t=t, wp=wp, wo=wo: plain(t, wp, wo)
+                      for t, (wp, wo) in zip(tables, slots)]
+            kv_read = n_kv - B
+        else:
+            calls = [lambda t=t: paged_attention(q, kp, vp, t, lens)
+                     for t in tables]
+            plains = [lambda t=t: ref.paged_attention_ref(q, kp, vp, t, lens)
+                      for t in tables]
+            kv_read = n_kv
+        nbytes = (2 * kv_read * Hkv * D * item + 2 * B * Hq * D * item
+                  + (4 * B * Hkv * D * item if fused else 0)
+                  + tables[0].numel() * 4 + B * 4 * (3 if fused else 1))
+        rows.append(dict(name=name, run=_cycle(calls), plain=_cycle(plains),
+                         lib=_cycle(libs), warm=calls[0], warm_lib=libs[0],
+                         nbytes=nbytes, flops=4.0 * n_kv * Hq * D,
+                         key="paged_decode"))
+    long_lane = _long_lane(q[:1], kp, vp, k_new[:1], v_new[:1], tables, F)
+    return rows, long_lane
+
+
+def _long_lane(q, kp, vp, k_new, v_new, tables, F):
+    """One lane of 16,384 tokens (maxp 512) through paged_attention_fused,
+    each call on the next of three 512-page tables (the pages of three
+    main-path tables, 3 x 33.5 MB), beside SDPA over the same keys."""
+    page, Hkv, D = kp.shape[1], kp.shape[2], kp.shape[3]
+    n = 512 * page
+    lens = torch.tensor([n], device=DEV).int()
+    ltables = [t.reshape(1, -1).contiguous() for t in tables[:3]]
+    slots = [_fused_slots(t, lens, page) for t in ltables]
+    for wp, wo in slots:
+        kp[wp.long(), wo.long()] = k_new
+        vp[wp.long(), wo.long()] = v_new
+    dense = [(_dense_kv(kp, t), _dense_kv(vp, t)) for t in ltables]
+    calls = [lambda t=t, wp=wp, wo=wo: paged_attention_fused(
+        q, kp, vp, t, lens, k_new, v_new, wp, wo)[0]
+        for t, (wp, wo) in zip(ltables, slots)]
+    libs = [lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, enable_gqa=True)[:, :, 0]
+        for kd, vd in dense]
+    nbytes = (2 * (n - 1) * Hkv * D * 2 + 2 * q.numel() * 2
+              + 4 * Hkv * D * 2 + 512 * 4 + 12)
+    return dict(run=_cycle(calls), lib=_cycle(libs), check=(calls[0],
+                                                             libs[0]),
+                nbytes=nbytes, flops=4.0 * n * q.shape[1] * D)
+
+
 def phase_timing(errs: Errors, launches):
     import torch.nn.functional as F
     gen = torch.Generator(device=DEV).manual_seed(11)
     bf16, item = torch.bfloat16, 2
-    B, Hq, Hkv, D, page, maxp, P = 8, 32, 8, 64, 32, 64, 4096
-    G = Hq // Hkv
-    rows = []
-    # decode lanes as the serve phase sees them: ~1.1k-1.4k context
-    lens = torch.tensor([1090, 1131, 1160, 1188, 1216, 1270, 1310, 1377],
-                        device=DEV).int()
-    q, kp, vp, table, lens = _decode_case(gen, B, Hq, Hkv, D, page, P, maxp,
-                                          bf16, lengths=lens)
-    k_new = _randn(gen, (B, Hkv, D), bf16)
-    v_new = _randn(gen, (B, Hkv, D), bf16)
-    wp, wo = _fused_slots(table, lens, page)
-    kp[wp.long(), wo.long()] = k_new     # the slots hold the new tokens, so
-    vp[wp.long(), wo.long()] = v_new     # every version sees the same pool
-    n_kv = float(lens.sum().item())
-    for name in ("paged_attention_fused", "paged_attention"):
-        fused = name == "paged_attention_fused"
-        if fused:
-            run = (lambda: paged_attention_fused(q, kp, vp, table, lens,
-                                                 k_new, v_new, wp, wo))
-
-            def plain():
-                kp[wp.long(), wo.long()] = k_new
-                vp[wp.long(), wo.long()] = v_new
-                return ref.paged_attention_ref(q, kp, vp, table, lens)
-            kv_read = n_kv - B
-        else:
-            run = (lambda: paged_attention(q, kp, vp, table, lens))
-            plain = (lambda: ref.paged_attention_ref(q, kp, vp, table, lens))
-            kv_read = n_kv
-        nbytes = (2 * kv_read * Hkv * D * item + 2 * B * Hq * D * item
-                  + (4 * B * Hkv * D * item if fused else 0)
-                  + table.numel() * 4 + B * 4 * (3 if fused else 1))
-        flops = 4.0 * n_kv * Hq * D
-        kd, vd = _dense_kv(kp, table), _dense_kv(vp, table)
-        mask = (torch.arange(maxp * page, device=DEV)[None]
-                < lens[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        lib = (lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask, enable_gqa=True))
-        rows.append((name, run, plain, lib, nbytes, flops))
+    Hq, Hkv, D, page, P = 32, 8, 64, 32, 4096
+    rows, long_lane = _decode_rows(gen, F)
     # a prefill pack as the serve phase sees it: C=256 of a ~1.3k context
     C, Np, q_off = 256, 64, 1024
     kv_len = q_off + C
@@ -1394,23 +1549,30 @@ def phase_timing(errs: Errors, launches):
     kv_pos = torch.arange(Np * page, device=DEV)
     pmask = ((kv_pos[None] <= (q_off + torch.arange(C, device=DEV))[:, None])
              & (kv_pos[None] < kv_len))[None, None]
-    rows.append(("paged_flash_attention",
-                 lambda: paged_flash_attention(qp, kpp, vpp, tablep, kvl, qo),
-                 lambda: ref.paged_flash_attention_ref(qp, kpp, vpp, tablep,
-                                                       kvl, qo),
-                 lambda: F.scaled_dot_product_attention(
-                     qp, kdp, vdp, attn_mask=pmask, enable_gqa=True),
-                 nbytes, flops))
+    run = (lambda: paged_flash_attention(qp, kpp, vpp, tablep, kvl, qo))
+    lib = (lambda: F.scaled_dot_product_attention(
+        qp, kdp, vdp, attn_mask=pmask, enable_gqa=True))
+    rows.append(dict(name="paged_flash_attention", run=run,
+                     plain=lambda: ref.paged_flash_attention_ref(
+                         qp, kpp, vpp, tablep, kvl, qo),
+                     lib=lib, warm=run, warm_lib=lib, nbytes=nbytes,
+                     flops=flops, key="_mma"))
     # the SDPA yardsticks compute the same function
-    for name, run, plain, lib, *_ in rows:
-        got = run()[0] if name == "paged_attention_fused" else run()
-        want = lib()
-        want = want[:, :, 0] if want.dim() == 4 and got.dim() == 3 else want
-        errs.check(name, "sdpa_bf16", got, want, BF16_TOL, "vs library")
+    for row in rows:
+        errs.check(row["name"], "sdpa_bf16", row["warm"](), row["warm_lib"](),
+                   BF16_TOL, "vs library")
+    errs.check("paged_attention_fused", "sdpa_bf16", long_lane["check"][0](),
+               long_lane["check"][1](), BF16_TOL, "16,384-token lane vs "
+               "library")
     out = []
-    for name, run, plain, lib, nbytes, flops in rows:
+    for row in rows:
+        name, run, nbytes, flops = row["name"], row["run"], row["nbytes"], \
+            row["flops"]
         bound, by = _bound(nbytes, flops, BF16_FLOPS)
-        k_ms, p_ms, l_ms = time_ms(run), time_ms(plain), time_ms(lib)
+        k_ms, p_ms = time_ms(run), time_ms(row["plain"])
+        l_ms = time_ms(row["lib"])
+        # device times: the launch is shorter than the wrapper's host cost
+        d_ms, ld_ms = device_ms(run, row["key"]), device_ms(row["lib"], "")
         out.append({
             "name": name, "route": "cuda", "source": KERNELS[name]["source"],
             "replaces": KERNELS[name]["replaces"],
@@ -1418,18 +1580,36 @@ def phase_timing(errs: Errors, launches):
             "max_abs_err": max(v for (n, dt), v in errs.max.items()
                                if n == name and dt != "sdpa_bf16"),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": l_ms})
-        if name in EARLIER_MS:     # device times: the launch is short
-            d_ms, ld_ms = device_ms(run, "_mma"), device_ms(lib, "")
-            out[-1].update(device_ms=d_ms, library_device_ms=ld_ms)
-            log(f"[timing] {name:22s} device time: kernel {d_ms:.4f} ms, "
-                f"sdpa {ld_ms:.4f} ms")
-            log(f"[timing] {name:22s} earlier {EARLIER_MS[name]:.4f} ms "
-                "(CUDA cores; from PERF.md, not this run)")
-        log(f"[timing] {name:22s} kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-            f"sdpa {l_ms:.4f} ms  bound {bound:.4f} ms ({by}: "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
-            f"bound/kernel {bound / k_ms:.3f}")
+            "library_ms": l_ms, "device_ms": d_ms,
+            "library_device_ms": ld_ms})
+        cold = "cold L2, " if row["warm"] is not run else ""
+        log(f"[timing] {name:22s} {cold}kernel {k_ms:.4f} ms (device "
+            f"{d_ms:.4f})  plain {p_ms:.4f} ms  sdpa {l_ms:.4f} ms (device "
+            f"{ld_ms:.4f})  bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} "
+            f"MB, {flops / 1e9:.3f} GFLOP)  bound/kernel {bound / k_ms:.3f} "
+            f"(device {bound / d_ms:.3f})")
+        if cold:
+            w_ms = time_ms(row["warm"])
+            wd_ms = device_ms(row["warm"], row["key"])
+            wl_ms = device_ms(row["warm_lib"], "")
+            out[-1]["warm_l2"] = dict(ms=w_ms, device_ms=wd_ms,
+                                      library_device_ms=wl_ms)
+            log(f"[timing] {name:22s} warm L2 (one table): kernel {w_ms:.4f} "
+                f"ms (device {wd_ms:.4f}), sdpa device {wl_ms:.4f} ms")
+        log(f"[timing] {name:22s} earlier {EARLIER_MS[name]:.4f} ms (before "
+            "the redesign; from PERF.md, not this run)")
+    bound, by = _bound(long_lane["nbytes"], long_lane["flops"], BF16_FLOPS)
+    k_ms, l_ms = time_ms(long_lane["run"]), time_ms(long_lane["lib"])
+    d_ms = device_ms(long_lane["run"], "paged_decode")
+    ld_ms = device_ms(long_lane["lib"], "")
+    out[0]["long_lane"] = dict(tokens=16384, ms=k_ms, device_ms=d_ms,
+                               library_ms=l_ms, library_device_ms=ld_ms,
+                               bound_ms=bound, bound_by=by)
+    log(f"[timing] paged_attention_fused one lane of 16,384 tokens (maxp "
+        f"512), cold L2: kernel {k_ms:.4f} ms (device {d_ms:.4f})  sdpa "
+        f"{l_ms:.4f} ms (device {ld_ms:.4f})  bound {bound:.4f} ms ({by}: "
+        f"{long_lane['nbytes'] / 1e6:.2f} MB)  bound/kernel device "
+        f"{bound / d_ms:.3f}")
     return out
 
 
@@ -1514,7 +1694,7 @@ def phase_flash_timing(errs: Errors):
 
         want = plain()
         errs.check("flex_attention", "bf16", lib(), want,
-                   _flash_tol(torch.bfloat16, want), f"{kind} vs plain")
+                   _attn_tol(torch.bfloat16, want), f"{kind} vs plain")
         errs.check("flash_attention", "sdpa_bf16", nocap(), sdpa(),
                    FLASH_BF16_TOL, f"{kind} vs library")
         k_ms, p_ms, l_ms = time_ms(run), time_ms(plain), time_ms(lib)
@@ -1620,15 +1800,21 @@ def phase_profile():
             i32([C - 1]), i32(np.zeros(B)), i32(lens - 1), i32(d_tables),
             i32(lens), i32(d_tables[np.arange(B), (lens - 1) // page]),
             i32((lens - 1) % page))
-    _profile(f"lm_mixed_paged full width, 1 pack C={C} + {B} decode lanes",
-             lambda: tf.lm_mixed_paged(cfg, params, cache, *args))
+    _, device, mine = _profile(
+        f"lm_mixed_paged full width, 1 pack C={C} + {B} decode lanes",
+        lambda: tf.lm_mixed_paged(cfg, params, cache, *args),
+        focus="paged_decode")
+    log(f"[profile]   paged_attention_fused: {mine / cfg.n_layers:.4f} ms "
+        f"device time per call ({cfg.n_layers} calls, split + combine), "
+        f"{mine:.3f} of the iteration's {device:.3f} ms")
 
 
 def _profile(label: str, fn, traced: int = 3, focus: str = ""):
     """Wall time per call with the profiler off (5 calls after 2 warm-up
     calls) and device time by kernel over ``traced`` profiled calls; logs
     the idle share, the top kernels and the device-time share of the
-    kernels whose name holds ``focus``. Returns (wall_ms, device_ms)."""
+    kernels whose name holds ``focus``. Returns (wall_ms, device_ms,
+    focus_ms), all per call."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
@@ -1653,6 +1839,7 @@ def _profile(label: str, fn, traced: int = 3, focus: str = ""):
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:8]:
         log(f"[profile]   {e.device_time_total / (traced * 1e3):9.3f} "
             f"ms/iter x{e.count // traced:4d}  {e.key[:90]}")
+    mine = 0.0
     if not evs:
         log("[profile] no device time in the trace: not measured")
     elif focus:
@@ -1660,7 +1847,7 @@ def _profile(label: str, fn, traced: int = 3, focus: str = ""):
             traced * 1e3)
         log(f"[profile]   {focus}: {mine:.3f} ms/iter, share of device time "
             f"{mine / total:.3f}, of wall time {mine / wall_ms:.3f}")
-    return wall_ms, total
+    return wall_ms, total, mine
 
 
 def phase_profile_rwkv(params) -> None:
@@ -1696,9 +1883,9 @@ def phase_profile_dense(backend) -> None:
     d_pos = torch.tensor([4700, 4650, 1100, 1050][:R], dtype=torch.int32,
                          device=DEV)
     d_toks = torch.zeros((R,), dtype=torch.int32, device=DEV)
-    wall, _ = _profile(f"dense lm_decode step over {R} slots of {Smax}",
-                       lambda: tf.lm_decode(cfg, params, cache, d_toks,
-                                            d_pos))
+    wall, _, _ = _profile(f"dense lm_decode step over {R} slots of {Smax}",
+                          lambda: tf.lm_decode(cfg, params, cache, d_toks,
+                                               d_pos))
     # the decode step's plain attention alone, at its shapes, per kind
     gen = torch.Generator(device=DEV).manual_seed(17)
     q = _randn(gen, (R, 1, cfg.n_heads, cfg.head_dim_), torch.bfloat16)

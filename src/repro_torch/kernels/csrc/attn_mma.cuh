@@ -1,6 +1,7 @@
 // Tensor-core attention core for Hopper (sm_90a), shared by the bf16 paths
 // of flash_attention.cu (dense, strided) and paged_flash_attention.cu
-// (pool pages through a block table).
+// (pool pages through a block table); paged_attention.cu (decode) uses
+// only its cp.async helpers.
 //
 // FlashAttention-2's design on the warp-level tensor cores:
 //

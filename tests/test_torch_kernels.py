@@ -8,7 +8,9 @@ Pallas kernels in interpret mode. Inputs are drawn with numpy and handed
 to both packages. Tolerances: 2e-5 in float32 (the JAX sweeps' own), 3e-2
 in bfloat16; pool writes are exact. The Hopper kernels themselves run only
 on the card, where ``chip_smoke.py`` holds them against the same plain
-versions.
+versions; what of them runs on the host is tested here: the split-K decode
+kernel's split plan and input checks, and its split-and-combine algebra
+(written out in torch) against the JAX package's plain decode attention.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_flash_attention as pfa
 from repro_torch.kernels import ref as tref
 
@@ -350,3 +353,199 @@ def test_paged_flash_check_rejects_and_limits_shared_memory_to_f32():
     pfa._check(*_paged_args(torch.bfloat16, **big))
     with pytest.raises(ValueError, match="48 KiB"):
         pfa._check(*_paged_args(torch.float32, **big))
+
+
+# ---------------------------------------------------------------------------
+# The split-K decode kernel's host side and algebra (csrc/paged_attention.cu)
+# ---------------------------------------------------------------------------
+
+# (B, Hkv, maxp, page): the decode sweeps above and chip_smoke.py's (page
+# 8, 16, 32), the main path, one long lane, large batches
+SPLIT_PLAN_CASES = sorted({(s[0], s[2], s[6], s[4]) for s in DECODE_SHAPES}
+                          | {(8, 8, 64, 32), (8, 8, 600, 32), (1, 8, 512, 32),
+                             (4, 8, 512, 32), (1, 8, 1, 32), (1, 1, 1, 8),
+                             (2, 2, 40, 8), (1, 8, 2048, 16), (64, 8, 64, 32),
+                             (256, 8, 4096, 32), (3, 2, 10, 8)})
+
+
+@pytest.mark.parametrize("B,Hkv,maxp,page", SPLIT_PLAN_CASES)
+def test_split_plan_covers_the_table(B, Hkv, maxp, page):
+    pps, S = pa._split_plan(B, Hkv, maxp, page)
+    assert isinstance(pps, int) and isinstance(S, int)   # whole pages
+    assert pps >= 1 and S >= 1
+    assert S * pps >= maxp                   # every table entry has a split
+    assert (S - 1) * pps < maxp              # no split wholly past the table
+    assert S <= pa._MAX_SPLITS
+    assert B * Hkv * S <= max(pa._MAX_BLOCKS, B * Hkv)
+    assert pps * page >= min(pa._KEYS_PER_SPLIT, maxp * page)
+
+
+def test_split_plan_main_path_fills_the_card():
+    """The main path's 8 lanes x 8 kv heads: 256-key splits, 512 blocks
+    (64 before the split); one 16,384-token lane: 512 blocks, not 8; short
+    lanes keep 128-key splits."""
+    assert pa._split_plan(8, 8, 64, 32) == (8, 8)
+    pps, S = pa._split_plan(1, 8, 512, 32)
+    assert 8 * S == 512 and pps * 32 == 256
+    assert pa._split_plan(8, 8, 16, 32) == (4, 4)
+
+
+def _decode_args(dtype, *, B=8, Hq=32, Hkv=8, D=64, page=32, P=80, maxp=64,
+                 fused=True):
+    """The main path's decode call (llama3.2-1b, 8 lanes, 64 pages)."""
+    i32 = torch.int32
+    args = [torch.empty((B, Hq, D), dtype=dtype),
+            torch.empty((P, page, Hkv, D), dtype=dtype),
+            torch.empty((P, page, Hkv, D), dtype=dtype),
+            torch.zeros((B, maxp), dtype=i32), torch.ones((B,), dtype=i32)]
+    if fused:
+        args += [torch.empty((B, Hkv, D), dtype=dtype),
+                 torch.empty((B, Hkv, D), dtype=dtype),
+                 torch.zeros((B,), dtype=i32), torch.zeros((B,), dtype=i32)]
+    return args
+
+
+def _misaligned(t):
+    """A view of t's shape and dtype that starts one element past a
+    16-byte boundary (CPU allocations are 64-byte aligned)."""
+    n = t.numel()
+    return torch.empty(n + 8, dtype=t.dtype)[1:n + 1].view(t.shape)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_check_accepts_main_path(dtype, fused):
+    pa._check(*_decode_args(dtype, fused=fused))
+    for D, G in ((32, 1), (128, 8), (64, 3)):     # the other instances
+        pa._check(*_decode_args(dtype, Hq=2 * G, Hkv=2, D=D, fused=fused))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_check_rejects_what_vector_loads_cannot_read(dtype):
+    args = _decode_args(dtype)
+    for i, name in ((0, "q"), (1, "k_pages"), (2, "v_pages"), (5, "k_new"),
+                    (6, "v_new")):
+        bad = list(args)
+        bad[i] = _misaligned(args[i])
+        assert bad[i].data_ptr() % 16
+        with pytest.raises(ValueError, match=f"{name} must start on a "
+                                             "16-byte boundary"):
+            pa._check(*bad)
+    for D in (36, 48, 96, 256):    # not a multiple of the vector, or no
+        with pytest.raises(ValueError, match="head dim"):   # instance
+            pa._check(*_decode_args(dtype, D=D))
+    with pytest.raises(ValueError, match="exceed one block"):
+        pa._check(*_decode_args(dtype, Hq=32, Hkv=2))
+
+
+def _split_combine(q, kp, vp, table, lengths, pps, S, k_new=None,
+                   v_new=None):
+    """The split decode kernel's algebra, written in torch (f32): split s
+    of lane b reads rows [s * pps * page, (s + 1) * pps * page) below the
+    limit (``lengths[b]``, fused ``lengths[b] - 1``) and gives (m, l, acc)
+    in base 2 (scores scaled by D**-0.5 * log2 e); an empty split gives
+    (-1e30, 0) and no acc; fused, the new token is one more partial
+    (q.k_new, 1, v_new) read from k_new / v_new. The combine:
+    o = sum_s 2^(m_s - M) acc_s / max(sum_s 2^(m_s - M) l_s, 1e-30) over
+    the partials with l_s > 0. Rows at or past the limit are never read."""
+    B, Hq, D = q.shape
+    _, page, Hkv, _ = kp.shape
+    G, maxp = Hq // Hkv, table.shape[1]
+    scale = D ** -0.5 * float(np.log2(np.e))
+    fused = k_new is not None
+    o = torch.empty(B, Hq, D)
+    for b in range(B):
+        limit = min(int(lengths[b]) - int(fused), maxp * page)
+        for h in range(Hkv):
+            qh = q[b, h * G:(h + 1) * G].float() * scale          # (G, D)
+            parts = []
+            for s in range(S):
+                lo = s * pps * page
+                hi = min(limit, lo + pps * page)
+                if lo >= hi:
+                    parts.append((torch.full((G,), -1e30), torch.zeros(G),
+                                  None))
+                    continue
+                rows = torch.arange(lo, hi)
+                pid = table[b, rows // page].long()
+                k = kp[pid, rows % page, h].float()                # (n, D)
+                v = vp[pid, rows % page, h].float()
+                sc = qh @ k.T                                      # (G, n)
+                m = sc.max(-1).values
+                p = torch.exp2(sc - m[:, None])
+                parts.append((m, p.sum(-1), p @ v))
+            if fused:
+                parts.append((qh @ k_new[b, h].float(), torch.ones(G),
+                              v_new[b, h].float().expand(G, D)))
+            live = [pt for pt in parts if bool((pt[1] > 0).all())]
+            M = torch.stack([pt[0] for pt in parts]).max(0).values
+            L, A = torch.zeros(G), torch.zeros(G, D)
+            for m, l, acc in live:
+                c = torch.exp2(m - M)
+                L, A = L + c * l, A + c[:, None] * acc
+            o[b, h * G:(h + 1) * G] = A / torch.clamp(L, min=1e-30)[:, None]
+    return o
+
+
+# (B, Hq, Hkv, D, page, maxp, pps): G 4, 3, 8 and 1; page 16, 8, 32; the
+# plan's own pps (None) and smaller splits for more of them
+COMBINE_SHAPES = [(6, 8, 2, 64, 16, 16, None), (6, 8, 2, 64, 16, 16, 3),
+                  (4, 6, 2, 32, 8, 24, 4), (3, 16, 2, 128, 32, 8, 1),
+                  (5, 4, 4, 64, 32, 12, 2)]
+
+
+def _edge_lengths(B, page, maxp, pps, fused):
+    """Limits (``lengths - fused``) at split edges (k*split, k*split +- 1)
+    and at maxp * page, then mid-split, and a last lane of length 1 (fused:
+    an idle lane)."""
+    k, top = pps * page, maxp * page - int(fused)
+    limits = [k, k - 1, k + 1, 2 * k, top] + [k // 2 + 3] * B
+    lens = [min(x, top) + int(fused) for x in limits[:B - 1]] + [1]
+    return np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("shape", COMBINE_SHAPES)
+def test_split_combine_matches_jax(shape, fused):
+    """The split-and-combine algebra against the JAX package's plain
+    decode attention, f32 at 2e-5: lengths on split edges, empty splits,
+    a lane of length 1 and, fused, the new token as its own partial with
+    NaN in its pool slot and everywhere no lane may read."""
+    B, Hq, Hkv, D, page, maxp, pps = shape
+    plan = pa._split_plan(B, Hkv, maxp, page)
+    pps = pps or plan[0]
+    S = -(-maxp // pps)
+    P = B * maxp + 1
+    q, kp, vp, _, _ = _decode_case(sum(shape[:6]) + fused, B, Hq, Hkv, D,
+                                   page, P, maxp)
+    rng = np.random.default_rng(B + D)
+    table = rng.permutation(P)[:B * maxp].reshape(B, maxp).astype(np.int32)
+    lengths = _edge_lengths(B, page, maxp, pps, fused)
+    k_new = rng.standard_normal((B, Hkv, D), np.float32)
+    v_new = rng.standard_normal((B, Hkv, D), np.float32)
+    wp = table[np.arange(B), (lengths - 1) // page]
+    wo = (lengths - 1) % page
+    kw, vw = kp.copy(), vp.copy()
+    if fused:
+        kw[wp, wo], vw[wp, wo] = k_new, v_new
+    want = jref.paged_attention_ref(jnp.asarray(q), jnp.asarray(kw),
+                                    jnp.asarray(vw), jnp.asarray(table),
+                                    jnp.asarray(lengths))
+    # poison what no lane may read: past each limit, and the fused slot
+    readable = np.zeros(kp.shape[:2], bool)
+    for b in range(B):
+        t = np.arange(lengths[b] - int(fused))
+        readable[table[b, t // page], t % page] = True
+    kz, vz = kp.copy(), vp.copy()
+    kz[~readable] = np.nan
+    vz[~readable] = np.nan
+    extra = (torch.from_numpy(k_new), torch.from_numpy(v_new)) if fused \
+        else ()
+    got = _split_combine(torch.from_numpy(q), torch.from_numpy(kz),
+                         torch.from_numpy(vz), torch.from_numpy(table),
+                         torch.from_numpy(lengths), pps, S, *extra)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=F32_TOL)
+    if fused:      # the idle lane (length 1) outputs its own v_new
+        np.testing.assert_allclose(
+            got[-1].numpy(), np.repeat(v_new[-1], Hq // Hkv, 0), atol=1e-6)

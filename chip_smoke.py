@@ -20,9 +20,15 @@ Phases, in order; any failure exits non-zero:
                 before the write. wkv6:
                 test_wkv6_shapes at f32 atol 5e-4, strong decay at 1e-4
                 plus 1e-4 of the largest output, T = 1, a strided layout,
-                and the main-path prefill with bf16 r/k/v at 1e-5 of the
-                largest output. Then the bf16 tensor-core paths of both
-                prefill attention kernels at tile edges (Sq 1-200, Skv and
+                extreme decays (w = 1e-12, w per channel from {1e-12, 1},
+                w = 1e-12 on 24 of every 32 steps, w = 1e-3: finite,
+                5e-4), tails of the kernel's 32-step chunk, T from 2 to 32,
+                B * H = 1, K 32 and 64 at both kernels (T = 1 and T >= 2),
+                and with bf16 r/k/v and the model's decays the main-path
+                prefill, a 64-token resume from its final state and a
+                decode step from it, at 1e-5 of the largest output. Then
+                the bf16 tensor-core paths of both prefill attention
+                kernels at tile edges (Sq 1-200, Skv and
                 kv_len off multiples of 64 and mid-page, windows starting
                 mid-tile, G 1-8, D 32-128, page 8-32), softcapped scores
                 in the cap's saturating range, and poisoned: NaN at every
@@ -153,14 +159,16 @@ KERNELS = {
         fn=wkv6, source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/wkv6.py:70"),
 }
-# the times of the four attention kernels before their redesigns (the two
-# prefill kernels on the CUDA cores; the two decode kernels as one block
-# per (lane, kv head), timed with warm L2), copied from PERF.md's kernel
+# the times of the kernels before their redesigns (the two prefill
+# kernels on the CUDA cores; the two decode kernels as one block per
+# (lane, kv head), timed with warm L2; wkv6 as one block of K threads per
+# (b, h) walking every step, its main-path prefill's profiler device
+# time), copied from PERF.md's kernel
 # table (this script's timing phase on an H100 80GB HBM3 at 700 W): logged
 # beside the new times on a line of their own, never put in the kernels
 # JSON, whose numbers are all measured in the run that prints them
 EARLIER_MS = {"paged_attention_fused": 0.2499, "paged_attention": 0.2234,
-              "paged_flash_attention": 0.4225,
+              "paged_flash_attention": 0.4225, "wkv6": 0.7629,
               "flash_attention": {"local": 3.0971, "global": 3.4152}}
 MAIN_PATH = ("paged_attention_fused", "paged_flash_attention")
 DENSE_PATH = ("flash_attention",)
@@ -474,6 +482,7 @@ def _wkv_inputs(gen, B, T, H, K, dtype, *, model_like=False):
 
 
 def _check_wkv(errs, args, chunk, tol, what, *, rtol=0.0):
+    """Kernel against plain version; returns the kernel's (o, state)."""
     o, sT = wkv6(*args, chunk=chunk)
     want_o, want_s = ref.wkv6_ref(*args)
     if not (torch.isfinite(o).all() and torch.isfinite(sT).all()):
@@ -482,17 +491,51 @@ def _check_wkv(errs, args, chunk, tol, what, *, rtol=0.0):
     for got, want, part in ((o, want_o, "o"), (sT, want_s, "state")):
         t = tol + rtol * want.abs().max().item()
         errs.check("wkv6", dtype, got, want, t, f"{what} {part} tol={t:.3e}")
+    return o, sT
+
+
+def _wkv_extreme(gen, B, T, H, K, kind):
+    """Test-distribution inputs (tests/test_kernels.py) with an extreme
+    decay: w = 1e-12 everywhere, w drawn per channel from {1e-12, 1}, w =
+    1e-12 on the first 24 steps of every 32 and 1 after, or w = 1e-3
+    (where the TPU kernel's half-chunk centring overflows)."""
+    r, k, v, _, u, s0 = _wkv_inputs(gen, B, T, H, K, torch.float32)
+    if kind == "channels":
+        pick = torch.rand((1, 1, H, K), generator=gen, device=DEV) < 0.5
+        w = torch.where(pick, 1e-12, 1.0).expand(B, T, H, K).contiguous()
+    elif kind == "front":
+        front = (torch.arange(T, device=DEV) % 32 < 24)[None, :, None, None]
+        w = torch.where(front, 1e-12, 1.0).expand(B, T, H, K).contiguous()
+    else:
+        w = torch.full((B, T, H, K), float(kind), device=DEV)
+    return r, k, v, w, u, s0
+
+
+# (B, T, H, K, chunk), f32, test distributions: tails for the chunked
+# kernel's internal chunk of 32 steps (and for a chunk of 64), T between 2
+# and 32, the carried-state check's length 1,088, B * H = 1
+WKV_EDGES = [(2, 96, 2, 64, 16), (1, 1056, 2, 64, 32), (2, 1088, 2, 64, 32),
+             (2, 48, 3, 32, 16), (1, 80, 2, 64, 16), (1, 1040, 1, 32, 16),
+             (2, 40, 2, 64, 8), (3, 2, 2, 64, 32), (2, 7, 3, 32, 32),
+             (2, 17, 2, 64, 32), (1, 31, 2, 32, 32), (2, 32, 2, 64, 32),
+             (1, 64, 1, 64, 32), (1, 64, 1, 32, 32), (1, 1, 1, 64, 32),
+             (1, 1, 1, 32, 32), (5, 1, 3, 32, 32)]
 
 
 def _wkv_sweeps(errs, gen):
     """wkv6 against its plain version: test_wkv6_shapes (f32, atol 5e-4),
     the strong-decay case (w = 0.25; 1e-4 plus 1e-4 of the largest output,
-    the JAX test's rtol/atol), single decode steps,
-    a strided layout, and the main-path prefill with bf16 r/k/v. There
-    both versions upcast the same bf16 values and differ only in the order
-    of f32 sums, over a state that grows to ~60 and outputs of ~600; the
-    tolerance is 1e-5 of the largest output, since an absolute one would
-    mean nothing at that scale."""
+    the JAX test's rtol/atol), single decode steps, a strided layout,
+    extreme decays (w = 1e-12, w per channel from {1e-12, 1}, w = 1e-12
+    on the first 24 steps of every 32, w = 1e-3; finite and within 5e-4),
+    tails of the internal chunk, T from 2 to 32, B * H = 1, K 32 and 64 at
+    both kernels, and the main-path shapes with
+    bf16 r/k/v and the model's decays: the prefill, a 64-token resume from
+    its final state, and a decode step from that state. There both versions
+    upcast the same bf16 values and differ only in the order of f32 sums,
+    over a state that grows to ~60 and outputs of ~600; the tolerance is
+    1e-5 of the largest output, since an absolute one would mean nothing at
+    that scale."""
     f32 = torch.float32
     for B, T, H, K, chunk in WKV_SHAPES:
         _check_wkv(errs, _wkv_inputs(gen, B, T, H, K, f32), chunk,
@@ -514,11 +557,27 @@ def _wkv_sweeps(errs, gen):
     views = [x.transpose(1, 2).contiguous().transpose(1, 2)
              for x in (r, k, v, w)]
     _check_wkv(errs, (*views, u, s0), 32, WKV_F32_TOL, "strided")
+    for kind in ("1e-12", "channels", "front", "1e-3"):
+        for K in (32, 64):
+            _check_wkv(errs, _wkv_extreme(gen, 2, 64, 2, K, kind), 32,
+                       WKV_F32_TOL, f"extreme decay w={kind} K={K}")
+    for B, T, H, K, chunk in WKV_EDGES:
+        _check_wkv(errs, _wkv_inputs(gen, B, T, H, K, f32), chunk,
+                   WKV_F32_TOL, f"edge B={B} T={T} H={H} K={K} chunk={chunk}")
+    _check_wkv(errs, _wkv_inputs(gen, 2, 17, 2, 64, torch.bfloat16), 32,
+               WKV_F32_TOL, "bf16 T=17")
     main = _wkv_inputs(gen, *WKV_PREFILL.values(), torch.bfloat16,
                        model_like=True)
-    _check_wkv(errs, main, 32, 0.0, "main-path prefill", rtol=WKV_REL_TOL)
+    _, state = _check_wkv(errs, main, 32, 0.0, "main-path prefill",
+                          rtol=WKV_REL_TOL)
     log(f"[kernels] wkv6 bf16 main-path prefill {WKV_PREFILL}: max abs err "
         f"{errs.max[('wkv6', 'bfloat16')]:.3e}")
+    B, _, H, K = WKV_PREFILL.values()
+    for T, what in ((64, "64-token resume"), (1, "main-path decode")):
+        r, k, v, w, u, _ = _wkv_inputs(gen, B, T, H, K, torch.bfloat16,
+                                       model_like=True)
+        _check_wkv(errs, (r, k, v, w, main[4], state), 32, 0.0,
+                   f"{what} from the prefill's state", rtol=WKV_REL_TOL)
 
 
 # Tile-edge shapes for the tensor-core paths (64-row query blocks, 64-key
@@ -1756,7 +1815,7 @@ def phase_wkv_timing(errs: Errors):
                            model_like=True)
         nbytes, flops = _wkv_bound(*shape.values(), 2)
         bound, by = _bound(nbytes, flops, TF32_FLOPS)
-        k_ms = device_ms(lambda: wkv6(*args), "wkv6_kernel")
+        k_ms = device_ms(lambda: wkv6(*args), "wkv6_")
         e_ms = time_ms(lambda: wkv6(*args))
         p_ms = time_ms(lambda: ref.wkv6_ref(*args),
                        iters=5 if shape["T"] > 1 else 50)
@@ -1768,6 +1827,8 @@ def phase_wkv_timing(errs: Errors):
             f"{flops / 1e9:.3f} GFLOP; f32 CUDA cores "
             f"{flops / F32_FLOPS * 1e3:.4f} ms)  bound/kernel "
             f"{bound / k_ms:.3f}")
+    log(f"[timing] wkv6 prefill earlier {EARLIER_MS['wkv6']:.4f} ms (device; "
+        "before the redesign; from PERF.md, not this run)")
     pre = shapes["prefill"]
     return {
         "name": "wkv6", "route": "cuda", "source": KERNELS["wkv6"]["source"],

@@ -7,19 +7,32 @@ head, with a ``(K, K)`` f32 state ``S`` carried over the steps::
     o_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
     S_t = diag(w_t) S_{t-1} + k_t v_t^T        (w clipped to [1e-12, 1])
 
-The TPU kernel walks chunks of ``chunk`` steps on a sequential grid axis
-and carries the state in VMEM scratch; here one block of K threads per
-(row, head) walks every step with the state's columns in registers, so
-``chunk`` only keeps the reference's length contract (``T`` a multiple of
-``min(chunk, T)``). r/k/v/w are read in place through their strides
+Two kernels, chosen by shape only. For ``T >= 2`` one block of 8 warps
+per (row, head) walks the sequence in chunks of 32 steps with the state in
+shared memory, the TPU kernel's chunked form: per chunk, the decayed
+``r k^T`` triangle, ``o = (r e^{L}) S + att v`` and the state update run on
+the tensor cores as 3xTF32 (``mma.sync`` m16n8k8, f32-accurate), with
+r/k/w/v copied in by 16-byte ``cp.async`` while the previous chunk
+computes. The triangle's decay factors are centred per channel on the
+chunk's own log-decay while it spans at most 60 (always, under the
+model's clip); a steeper channel splits them at the end of the first
+16-step sub-block, and the two diagonal sub-blocks then take each pair's
+weight directly. So the kernel is finite over the whole clipped range
+``[1e-12, 1]``, where the TPU kernel's half-chunk centring overflows (w <=
+1e-3 at chunk 32). For ``T == 1`` (a decode step) a step kernel splits each
+(row, head) into 32-column slabs of the state, one warp a slab and one
+column a thread. ``chunk`` only keeps the reference's length contract (``T`` a
+multiple of ``min(chunk, T)``); the kernel's own chunk is internal and a
+tail chunk is masked. r/k/v/w are read in place through their strides
 (last dimension contiguous): the TPU wrapper's move to ``(B, H, T, K)`` is
-no copy here.
+no copy here. For ``T >= 2`` each row of r/k/v/w must start 16-byte
+aligned, and the state must be 16-byte aligned.
 
 What bounds it on the H100: bytes. A prefill of B 8, T 1,024, H 32, K 64
 in bf16 moves ≈ 243 MB (≈ 0.073 ms at 3.35 TB/s, reckoned) for ≈ 5.4
-GFLOP; a decode step moves the state. The simple design runs every
-product on the CUDA cores in f32 and is limited by the serial walk;
-PERF.md records its time against the bound.
+GFLOP (≈ 19 GFLOP of 3xTF32 tensor-core work in the chunked form); a
+decode step moves the state (≈ 8.4 MB at B 8). PERF.md records the times
+against the bound.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.wkv6_ref`); on a CUDA tensor it launches
@@ -86,6 +99,16 @@ def _check(r, k, v, w, u, state):
             raise ValueError("wkv6 needs a contiguous last dimension")
     if not (u.is_contiguous() and state.is_contiguous()):
         raise ValueError("u and state must be contiguous")
+    if state.data_ptr() % 16:
+        raise ValueError("wkv6 needs a 16-byte aligned state")
+    if T > 1:       # the chunked kernel copies rows 16 bytes at a time
+        for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+            per = 16 // t.element_size()
+            if t.data_ptr() % 16 or any(
+                    st % per for st, n in zip(t.stride()[:3], t.shape[:3])
+                    if n > 1):
+                raise ValueError(f"wkv6: rows of {name} must start 16-byte "
+                                 f"aligned (strides {tuple(t.stride())})")
 
 
 def wkv6(r, k, v, w, u, state, *, chunk: int = 32):

@@ -164,6 +164,168 @@ def test_wkv6_wrapper_contract():
 
 
 # ---------------------------------------------------------------------------
+# the Hopper kernel's blocking (csrc/wkv6.cu), modelled in torch
+# ---------------------------------------------------------------------------
+
+CHUNK, SUB, MAX_SPAN = 32, 16, 60.0     # the kernel's kC, kSub, kMaxSpan
+
+
+def _blocked_wkv6(r, k, v, w, u, state):
+    """The chunked kernel's arithmetic in f32, as a model of its range
+    design: chunks of 32 steps (a tail chunk padded with log w = 0 and
+    r = k = v = 0), per channel a reference point for the decayed r k^T,
+    the chunk's log-decay midpoint while it spans at most 60 and else the
+    end of the first 16-step sub-block, and per-pair weights on the two
+    diagonal sub-blocks of a chunk with any steeper channel. Returns
+    (o, final state, number of chunks that took the per-pair branch)."""
+    f = torch.float32
+    r, k, v = (x.to(f).permute(0, 2, 1, 3) for x in (r, k, v))
+    lw = torch.log(torch.clamp(w.to(f), 1e-12, 1.0)).permute(0, 2, 1, 3)
+    B, H, T, K = r.shape
+    pad = -T % CHUNK
+    r, k, v, lw = (torch.nn.functional.pad(x, (0, 0, 0, pad))
+                   for x in (r, k, v, lw))
+    u, S = u.to(f), state.to(f).clone()
+    t_idx = torch.arange(CHUNK)
+    below = t_idx[None, :] < t_idx[:, None]             # s < t
+    sub = t_idx // SUB
+    same = sub[:, None] == sub[None, :]
+    outs, pairs = [], 0
+    for c0 in range(0, T + pad, CHUNK):
+        rc, kc, vc, lc = (x[:, :, c0:c0 + CHUNK] for x in (r, k, v, lw))
+        L = torch.cumsum(lc, dim=2)                       # inclusive
+        Lp = L - lc                                       # L_{t-1}
+        tot, le = L[:, :, -1:], L[:, :, SUB - 1:SUB]
+        steep = -tot > MAX_SPAN
+        ref = torch.where(steep, le, 0.5 * tot)
+        first = (t_idx < SUB)[None, None, :, None]
+        # a steep channel's factors only where they are <= 1: rows of
+        # sub-block 1, keys of sub-block 0
+        qx = torch.where(steep & first, 0.0, rc * torch.exp(Lp - ref))
+        kx = torch.where(steep & ~first, 0.0, kc * torch.exp(ref - L))
+        att = qx @ kx.transpose(-1, -2)
+        pair = steep.any(-1, keepdim=True)                # (B, H, 1, 1)
+        if pair.any():
+            pairs += 1
+            expo = torch.where(below[..., None], Lp[:, :, :, None] -
+                               L[:, :, None], -torch.inf)  # (B,H,t,s,K)
+            direct = (rc[:, :, :, None] * kc[:, :, None] *
+                      torch.exp(expo)).sum(-1)
+            att = torch.where(pair & same, direct, att)
+        bonus = (rc * u[None, :, None] * kc).sum(-1)
+        att = torch.where(below, att, 0.0) + torch.diag_embed(bonus)
+        outs.append(rc * torch.exp(Lp) @ S + att @ vc)
+        S = torch.exp(tot).transpose(-1, -2) * S + \
+            (kc * torch.exp(tot - L)).transpose(-1, -2) @ vc
+    o = torch.cat(outs, dim=2)[:, :, :T].permute(0, 2, 1, 3)
+    return o, S, pairs
+
+
+def _extreme_case(kind, B=2, T=64, H=2, K=32, seed=3):
+    """Test-distribution r/k/v/u/state with w = 1e-12, w per channel from
+    {1e-12, 1}, w = 1e-12 on the first 24 steps of every 32 and 1 after
+    (a steep chunk whose log-decay midpoint is not the sub-block edge), or
+    w = 1e-3 (where the TPU kernel's half-chunk centring overflows at
+    chunk 32)."""
+    r, k, v, _, u, s0 = _wkv_case(seed, B, T, H, K)
+    if kind == "channels":
+        pick = np.random.default_rng(seed).random((1, 1, H, K)) < 0.5
+        w = np.broadcast_to(np.where(pick, 1e-12, 1.0), (B, T, H, K))
+    elif kind == "front":
+        front = (np.arange(T) % 32 < 24)[None, :, None, None]
+        w = np.broadcast_to(np.where(front, 1e-12, 1.0), (B, T, H, K))
+    else:
+        w = np.full((B, T, H, K), float(kind))
+    return r, k, v, np.ascontiguousarray(w, np.float32), u, s0
+
+
+def _against_jax(arrays, atol=5e-4, rtol=1e-4):
+    o, s, pairs = _blocked_wkv6(*(torch.from_numpy(a) for a in arrays))
+    o_j, s_j = jref.wkv6_ref(*(jnp.asarray(a) for a in arrays))
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    np.testing.assert_allclose(_np(o), np.asarray(o_j), atol=atol, rtol=rtol)
+    np.testing.assert_allclose(_np(s), np.asarray(s_j), atol=atol, rtol=rtol)
+    return pairs
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_blocked_model_matches_jax(case):
+    """The kernel's blocking against JAX's sequential oracle on the sweeps
+    of test_wkv6_shapes, the strong decay and a single step."""
+    if case == "strong":
+        arrays = _strong_decay_case()
+    else:
+        B, T, H, K, _ = case
+        arrays = _wkv_case(B * 100 + T, B, T, H, K)
+    assert _against_jax(arrays) == 0          # no chunk is steep here
+
+
+@pytest.mark.parametrize("K", [32, 64])
+@pytest.mark.parametrize("kind", ["1e-12", "channels", "front", "1e-3"])
+def test_blocked_model_extreme_decay(kind, K):
+    """Finite and within 5e-4 over the clipped range, through the per-pair
+    branch of the diagonal sub-blocks."""
+    assert _against_jax(_extreme_case(kind, K=K), rtol=0) == 2
+
+
+# (B, T, H, K): tails of the 32-step chunk (shorter and longer than a
+# sub-block), and T between 2 and 32
+@pytest.mark.parametrize("shape", [(1, 48, 2, 32), (2, 80, 1, 64),
+                                   (1, 40, 2, 32), (2, 7, 2, 32),
+                                   (1, 17, 1, 64), (2, 2, 1, 32)], ids=str)
+def test_blocked_model_tail_chunks(shape):
+    assert _against_jax(_wkv_case(sum(shape), *shape)) == 0
+
+
+def test_blocked_model_mild_at_the_model_clip():
+    """The model clips w to exp(-exp(0.35)) from below: 32 such steps sum
+    to 45.4 in log, inside the centred range, so no chunk of the served
+    path takes the per-pair branch."""
+    r, k, v, _, u, s0 = _wkv_case(9, 1, 64, 2, 32)
+    w = np.full(r.shape, np.exp(-np.exp(0.35)), np.float32)
+    assert 32 * np.exp(0.35) < MAX_SPAN
+    assert _against_jax((r, k, v, w, u, s0)) == 0
+    w[:, :32] = 0.05                     # 32 x 3.0: past the centred range
+    assert _against_jax((r, k, v, w, u, s0)) == 1
+
+
+def test_wkv6_wrapper_finite_at_the_decay_floor():
+    """On CPU tensors the wrapper's plain version stays finite at
+    w = 1e-12 (the clip floor) and matches JAX's oracle."""
+    arrays = _extreme_case("1e-12", T=96)
+    o, s = tops.wkv(*(torch.from_numpy(a) for a in arrays), chunk=32)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    o_j, s_j = jref.wkv6_ref(*(jnp.asarray(a) for a in arrays))
+    np.testing.assert_allclose(_np(o), np.asarray(o_j), atol=5e-4)
+    np.testing.assert_allclose(_np(s), np.asarray(s_j), atol=5e-4)
+
+
+def test_wkv6_check_alignment():
+    """The chunked kernel copies rows 16 bytes at a time: for T >= 2 every
+    row must start 16-byte aligned (the main path's contiguous and
+    (B, H, T, K)-transposed layouts do); a decode step reads scalars."""
+    B, T, H, K = 2, 64, 2, 32
+    t = [torch.from_numpy(a) for a in _wkv_case(4, B, T, H, K)]
+    wkv_mod._check(*t)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in t[:4]]
+    wkv_mod._check(*views, *t[4:])
+    bf = [x.to(torch.bfloat16) for x in t[:3]]
+    wkv_mod._check(*bf, *t[3:])
+    shifted = torch.empty(B * T * H * K + 1)[1:].view(B, T, H, K)
+    shifted.copy_(t[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv_mod._check(shifted, *t[1:])
+    odd = torch.empty(B, T, H, K + 1, dtype=torch.bfloat16)[..., :K]
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv_mod._check(*bf[:2], odd, *t[3:])
+    step = [x[:, :1] for x in (shifted, *t[1:4])]
+    wkv_mod._check(*step, *t[4:])                # T = 1: scalar reads
+    s_odd = torch.empty(B * H * K * K + 1)[1:].view(B, H, K, K)
+    with pytest.raises(ValueError, match="16-byte aligned state"):
+        wkv_mod._check(*t[:5], s_odd)
+
+
+# ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 

@@ -89,12 +89,41 @@ Phases, in order; any failure exits non-zero:
                 chunk (C = 512 at q_offset 4,096) and one dense decode step
                 over 4 slots
 
+The MoE family (qwen3-coder-30b-a3b, the paper's model, and
+granite-moe-3b-a800m) adds, in run order:
+
+- kernels: the decode pair at Qwen3's G 8, D 128 over 8 lanes at
+  1,090-1,377, and a bf16 paged_flash_attention pack (C 256 at q_offset
+  1,024, Hq 32, Hkv 4, D 128);
+- model-moe (after model): both MoE configs .reduced() through the paged
+  calls of phase 4 and the dense-cache calls, f32, card vs CPU, every
+  route and capacity slot equal; one full-width moe_ffn (E 128, K 8,
+  D 2048, F 768, 256 tokens, f32) card vs CPU, routes equal, within 1e-4
+  of the largest output; qwen3 at full width with 4 layers in bf16, the
+  kernels against the plain attention on the card, twice: both sides
+  routing freely (the re-routed tokens counted: bf16 noise flips
+  near-ties, which cascade), then the kernel side pinned to the plain
+  side's routes, every token's logits and pool slots at the bf16
+  tolerance;
+- timing: the paged pair's rows also carry a "qwen3" entry (G 8, D 128);
+- serve-moe (after profile-rwkv): qwen3-coder-30b-a3b at full width in
+  bf16 (61 GB of random weights from seed 0, 1,024 pages of 32), driven
+  through ServingAPI over Engine(scheduler="mixed"): 8 jobs of 3 rounds
+  in two families sharing a 1,024-token prefix, each later request under
+  the same job_id, under MARS (every job's second round warm) and under
+  forced OFFLOAD (a host swap-out); both paged kernels must launch; its
+  launches are logged apart, the kernels JSON keeps the llama serve's;
+- profile-moe: one full-width mixed iteration (a pack of C 256 plus 8
+  lanes): wall vs device time, idle share, device time by MoE step and
+  by paged kernel. Freed before serve-dense.
+
 The line before the last is the kernels JSON line; the last line is the
 device JSON line. TF32 is off throughout (float32 parity).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -110,11 +139,13 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import qwen3_coder_30b  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import events as ev  # noqa: E402
 from repro_torch.core.events import EventBus  # noqa: E402
 from repro_torch.core.policies import KVAction  # noqa: E402
 from repro_torch.core.session import Round, make_session  # noqa: E402
+from repro_torch.engine.api import ChatRequest, ServingAPI  # noqa: E402
 from repro_torch.engine.engine import Engine, EngineConfig, run_live  # noqa: E402
 from repro_torch.engine.tools import RealToolExecutor  # noqa: E402
 from repro_torch.engine.torch_runner import TorchBackend  # noqa: E402
@@ -138,6 +169,7 @@ TF32_FLOPS = 495e12              # dense TF32 tensor-core peak (f32 work)
 F32_FLOPS = 67e12                # f32 outside the tensor cores
 WKV_F32_TOL, WKV_STRONG_TOL = 5e-4, 1e-4   # tests/test_kernels.py's own
 WKV_REL_TOL = 1e-5               # x the largest |output|, main-path bf16
+MOE_FFN_REL_TOL = 1e-4           # x the largest |output|, f32 moe_ffn
 KERNELS = {
     "paged_attention_fused": dict(
         fn=paged_attention_fused,
@@ -174,6 +206,7 @@ MAIN_PATH = ("paged_attention_fused", "paged_flash_attention")
 DENSE_PATH = ("flash_attention",)
 RWKV_PATH = ("wkv6",)
 DEV = torch.device("cuda")
+QWEN3 = qwen3_coder_30b.CONFIG   # the paper's model; no assigned arch
 
 
 def log(msg: str) -> None:
@@ -711,6 +744,9 @@ DECODE_SWEEP = [(4, 8, 2, 64, 32, 64, 8), (2, 4, 4, 128, 16, 32, 4),
 DECODE_MAIN = (8, 32, 8, 64, 32, 600, 64)
 # one 16,384-token lane (maxp 512) next to short ones
 DECODE_LONG = ((4, 32, 8, 64, 32, 2100, 512), [16384, 5, 129, 1000])
+# the MoE serve's decode: Qwen3-Coder's Hq 32, Hkv 4, D 128 (G 8), 8 lanes
+DECODE_QWEN3 = (8, 32, 4, 128, 32, 600, 64)
+MAIN_LENS = [1090, 1131, 1160, 1188, 1216, 1270, 1310, 1377]
 
 
 def _decode_edges():
@@ -731,6 +767,12 @@ def _decode_sweeps(errs, gen, dtype):
         f"{e_ro:.3e} (tol {t_ro:.3e}); fused {e_f:.3e} (tol {t_f:.3e})")
     _check_decode(errs, gen, dtype, *DECODE_MAIN,
                   lengths=[2048, 1, 33, 1024, 1500, 700, 64, 1999])
+    ((e_ro, t_ro), (e_f, t_f)) = _check_decode(errs, gen, dtype,
+                                               *DECODE_QWEN3,
+                                               lengths=MAIN_LENS)
+    log(f"[kernels] paged_attention {str(dtype)[6:]} Qwen3 (G 8, D 128) 8 "
+        f"lanes at 1,090-1,377: max abs err {e_ro:.3e} (tol {t_ro:.3e}); "
+        f"fused {e_f:.3e} (tol {t_f:.3e})")
     _check_decode(errs, gen, dtype, *DECODE_MAIN, lengths=_decode_edges())
     _check_decode(errs, gen, dtype, *DECODE_LONG[0], lengths=DECODE_LONG[1])
     for shape, lengths in ((DECODE_MAIN, [129, 1, 2048, 700, 128, 1377, 64,
@@ -766,6 +808,11 @@ def phase_kernels() -> Errors:
                 f"kv_len={kv}: max abs err {err:.3e} (tol {ptol:.3e})")
         _check_shared_prefix_rows(dtype, gen)
         _flash_sweeps(errs, gen, dtype)
+    # the MoE serve's pack: Qwen3-Coder's G 8 at D 128 on the tensor cores
+    err, ptol = _check_prefill(errs, gen, torch.bfloat16, 1, 32, 4, 128, 32,
+                               80, 66, 256, kv_len=[1280], table_ids=80)
+    log(f"[kernels] paged_flash_attention bf16 Qwen3 (Hq 32, Hkv 4, D 128) "
+        f"C=256 at q_offset 1,024: max abs err {err:.3e} (tol {ptol:.3e})")
     _edge_sweeps(errs, gen, torch.bfloat16)
     _wkv_sweeps(errs, gen)
     torch.cuda.synchronize()
@@ -817,6 +864,43 @@ def _plain_attention():
         ops.attention, ops.prefill_attention, ops.decode_attention = saved
 
 
+@contextlib.contextmanager
+def _routes(pin=None):
+    """Records every ``moe_ffn`` call made inside, in call order, on the
+    CPU: its own top-k ``idx`` (T, K) and the capacity slot ``pos`` and
+    ``keep`` (T, K) it dispatched with.
+    With ``pin`` (the records of another run of the same calls) each call
+    routes to that run's experts instead of its own top-k, weighted by
+    its own probabilities, so capacity ranks and drops follow the pinned
+    run; the record still holds the call's own top-k. Wraps
+    ``layers._route`` and ``layers._dispatch``, which ``moe_ffn`` looks
+    up at call time; restored on exit."""
+    from repro_torch.models import layers
+    rec = []
+    orig_route, orig_dispatch = layers._route, layers._dispatch
+
+    def route(moe, logits):
+        idx, w = orig_route(moe, logits)
+        rec.append(dict(idx=idx.cpu()))
+        if pin is not None:
+            idx = pin[len(rec) - 1]["idx"].to(logits.device)
+            w = torch.softmax(logits.float(), dim=-1).gather(-1, idx)
+            w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-9)
+        return idx, w
+
+    def dispatch(x, idx, w, num_experts, capacity):
+        buf, (flat_e, pos_c, keep) = orig_dispatch(x, idx, w, num_experts,
+                                                   capacity)
+        rec[-1].update(pos=pos_c.view(idx.shape).cpu(),
+                       keep=keep.view(idx.shape).cpu())
+        return buf, (flat_e, pos_c, keep)
+    layers._route, layers._dispatch = route, dispatch
+    try:
+        yield rec
+    finally:
+        layers._route, layers._dispatch = orig_route, orig_dispatch
+
+
 class _ModelParity:
     """The two sides of a model phase and their comparison. float32: the
     reference runs on the CPU (plain versions), the kernels on the card,
@@ -826,15 +910,31 @@ class _ModelParity:
     the kernel side must launch each of ``kernels``. Next tokens must be
     equal; in bfloat16 at each row whose reference top two logits differ
     by more than twice the row's largest logit error (a closer tie may
-    break either way within it), the other rows counted as near ties."""
+    break either way within it), the other rows counted as near ties.
 
-    def __init__(self, label, dtype, kernels):
+    An MoE model (``n_layers`` given) also has its routes compared, one
+    forward (``n_layers`` moe_ffn calls) after another, on each forward's
+    real tokens (``real``: their count per forward; padded lanes and idle
+    decode lanes come last and take no capacity slot from a real token).
+    float32: expert indices and capacity slots must be equal. bfloat16:
+    the attention kernels' rounding moves the router logits a little; at
+    a near tie of the top-k that flips a route, which moves the token's
+    output by O(1), then every later token that attends to it and every
+    token whose capacity slot it takes. So with ``pin`` the kernel side
+    routes to the reference's experts (``_routes``) and every token is
+    compared; the tokens whose own top-k differs from the reference's are
+    counted. Without ``pin`` (both sides free-running) the re-routed
+    tokens are counted and nothing is compared."""
+
+    def __init__(self, label, dtype, kernels, n_layers=0, pin=True):
         self.label, self.dtype, self.kernels = label, dtype, kernels
         self.bf16 = dtype == torch.bfloat16
         self.ref_dev = DEV if self.bf16 else torch.device("cpu")
         self.worst = 0.0
         self.launched = dict.fromkeys(kernels, 0)
         self.compared = self.ties = 0
+        self.n_layers, self.pin = n_layers, pin
+        self.tokens = self.flipped = self.pairs = self.pairs_flipped = 0
 
     def params(self, params):
         """(reference, kernel) copies of float32 ``params`` in the dtype."""
@@ -846,21 +946,57 @@ class _ModelParity:
                      v0.to(self.ref_dev, self.dtype, copy=True)),
                 kind(k0.to(DEV, self.dtype), v0.to(DEV, self.dtype)))
 
-    def run(self, fn, ref_args, dev_args):
-        """fn(*ref_args) as the reference, fn(*dev_args) with the kernels."""
+    def run(self, fn, ref_args, dev_args, real=None):
+        """fn(*ref_args) as the reference, fn(*dev_args) with the kernels;
+        ``real``: the real tokens of each forward (MoE routes)."""
         counts = [KERNELS[n]["fn"].launches for n in self.kernels]
-        if self.bf16:
-            with _plain_attention():
+        with _routes() as want_routes:
+            if self.bf16:
+                with _plain_attention():
+                    want = fn(*ref_args)
+                if [KERNELS[n]["fn"].launches for n in self.kernels] \
+                        != counts:
+                    raise AssertionError(f"{self.label}: the plain side "
+                                         "launched a kernel")
+            else:
                 want = fn(*ref_args)
-            if [KERNELS[n]["fn"].launches for n in self.kernels] != counts:
-                raise AssertionError(f"{self.label}: the plain side launched "
-                                     "a kernel")
-        else:
-            want = fn(*ref_args)
-        got = fn(*dev_args)
+        pin = want_routes if self.bf16 and self.pin else None
+        with _routes(pin) as got_routes:
+            got = fn(*dev_args)
         for n, c in zip(self.kernels, counts):
             self.launched[n] += KERNELS[n]["fn"].launches - c
+        if self.n_layers:
+            self.routes(got_routes, want_routes, real,
+                        getattr(fn, "__name__", "call"))
         return want, got
+
+    def routes(self, got, want, real, what):
+        L = self.n_layers
+        if len(got) != len(want) or not got or len(got) % L:
+            raise AssertionError(f"{self.label} {what}: {len(got)} vs "
+                                 f"{len(want)} moe_ffn calls")
+        for f, g0 in enumerate(range(0, len(got), L)):
+            n = got[g0]["idx"].shape[0] if real is None else real[f]
+            flipped = torch.zeros(n, dtype=torch.bool)
+            for l in range(L):
+                g, w = got[g0 + l], want[g0 + l]
+                self.pairs += n
+                if not self.bf16:
+                    if not (torch.equal(g["idx"][:n], w["idx"][:n])
+                            and torch.equal(g["pos"][:n], w["pos"][:n])):
+                        bad = ((g["idx"][:n] != w["idx"][:n])
+                               | (g["pos"][:n] != w["pos"][:n])).any(-1)
+                        raise AssertionError(
+                            f"{self.label} {what} forward {f} layer {l}: "
+                            f"routes or capacity slots differ at tokens "
+                            f"{bad.nonzero()[:8, 0].tolist()}")
+                    continue
+                flip = (g["idx"][:n].sort(-1).values
+                        != w["idx"][:n].sort(-1).values).any(-1)
+                self.pairs_flipped += int(flip.sum())
+                flipped |= flip
+            self.tokens += n
+            self.flipped += int(flipped.sum())
 
     def tol(self, want):
         if not self.bf16:
@@ -907,15 +1043,35 @@ class _ModelParity:
             f"{self.launched}) vs {side}: worst err/tol {self.worst:.3f} "
             f"(tol {tol}); next tokens equal at {self.compared} rows"
             + (f", {self.ties} near ties not compared" if self.bf16 else ""))
+        if not self.n_layers:
+            return
+        if not self.bf16:
+            log(f"[model] {self.label} f32: routes and capacity slots equal "
+                f"at {self.pairs} (token, layer) pairs")
+            return
+        how = ("the kernel side pinned to the plain side's routes; its "
+               "own top-k" if self.pin else
+               "both sides free-running, counted, not compared")
+        log(f"[model] {self.label} bf16 routes ({how}): {self.pairs_flipped}"
+            f" of {self.pairs} (token, layer) pairs chose other experts; "
+            f"{self.flipped} of {self.tokens} real tokens in some layer")
 
 
-def phase_model(dtype=torch.float32) -> None:
+def phase_model(dtype=torch.float32, cfg=None) -> None:
     """llama3.2-1b .reduced() on the paged pool (see _ModelParity); in
-    bf16 at the serving instances' head dim and group (D 64, G 4)."""
-    over = dict(head_dim=64, n_heads=8) if dtype == torch.bfloat16 else {}
-    cfg = get_config("llama3.2-1b").reduced(**over)
-    mp = _ModelParity(f"llama3.2-1b reduced {over}", dtype,
-                      ("paged_flash_attention", "paged_attention_fused"))
+    bf16 at the serving instances' head dim and group (D 64, G 4). With
+    ``cfg`` (a reduced MoE config, f32) the same calls on that model, its
+    routes and capacity slots held equal."""
+    if cfg is None:
+        over = dict(head_dim=64, n_heads=8) if dtype == torch.bfloat16 \
+            else {}
+        cfg = get_config("llama3.2-1b").reduced(**over)
+        label = f"llama3.2-1b reduced {over}"
+    else:
+        label = cfg.name
+    mp = _ModelParity(label, dtype,
+                      ("paged_flash_attention", "paged_attention_fused"),
+                      n_layers=cfg.n_layers if cfg.family == "moe" else 0)
     rparams, dparams = mp.params(
         tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32))
     page, P, Np = 32, 12, 4
@@ -931,12 +1087,12 @@ def phase_model(dtype=torch.float32) -> None:
         mp.agree(dcache.k[:, live], rcache.k[:, live], what + " k pages")
         mp.agree(dcache.v[:, live], rcache.v[:, live], what + " v pages")
 
-    def both(fn, *args):
+    def both(fn, *args, real=None):
         return mp.run(
             fn, (cfg, rparams, rcache,
                  *(torch.as_tensor(x).to(mp.ref_dev) for x in args)),
             (cfg, dparams, dcache, *(torch.as_tensor(x).to(DEV)
-                                     for x in args)))
+                                     for x in args)), real)
 
     # chunked prefill: two chunks, the second ragged (20 real of 32)
     table = np.array([0, 1, scratch, scratch], np.int32)
@@ -950,7 +1106,7 @@ def phase_model(dtype=torch.float32) -> None:
         wo = np.arange(32, dtype=np.int32) % page
         wo[:n] = (start + np.arange(n)) % page
         (lc, _), (lg, _) = both(tf.lm_prefill_paged, toks, pos, table, wp, wo,
-                                np.int32(start + n))
+                                np.int32(start + n), real=[n])
         mp.agree(lg[:, :n], lc[:, :n], f"prefill logits @{start}")
         mp.same_next(lg[0, n - 1], lc[0, n - 1], f"prefill @{start}")
         pools(f"prefill @{start}")
@@ -962,7 +1118,7 @@ def phase_model(dtype=torch.float32) -> None:
     wo = np.array([52 % page, 69 % page, 4, 0], np.int32)
     toks = np.array([7, 9, 11, 0], np.int32)
     (lc, _), (lg, _) = both(tf.lm_decode_paged, toks, lens - 1, tables, lens,
-                            wp, wo)
+                            wp, wo, real=[3])
     mp.agree(lg[:3], lc[:3], "decode logits")
     mp.same_next(lg[:3], lc[:3], "decode")
     pools("decode")
@@ -981,7 +1137,7 @@ def phase_model(dtype=torch.float32) -> None:
     (pc, dc, _), (pg, dg, _) = both(
         tf.lm_mixed_paged, p_toks, p_pos, p_tab, p_wp, p_wo,
         np.array([24], np.int32), np.array([23], np.int32), toks, lens2 - 1,
-        tables, lens2, wp, wo2)
+        tables, lens2, wp, wo2, real=[24, 3])
     if mp.bf16:     # tokens without logits cannot tell a near tie: the
         # pools below carry the bf16 check of this call
         log(f"[model] bf16 mixed next tokens: kernels {pg.tolist()}/"
@@ -993,14 +1149,19 @@ def phase_model(dtype=torch.float32) -> None:
     mp.done()
 
 
-def phase_model_dense(dtype=torch.float32) -> None:
+def phase_model_dense(dtype=torch.float32, cfg=None) -> None:
     """gemma2-27b .reduced() (window 64, softcaps, post norms, tied
     embeddings) on the dense cache (see _ModelParity); in bf16 at the
-    serving instance's head dim (D 128)."""
-    over = dict(head_dim=128) if dtype == torch.bfloat16 else {}
-    cfg = get_config("gemma2-27b").reduced(**over)
-    mp = _ModelParity(f"gemma2-27b reduced {over} (dense cache)", dtype,
-                      ("flash_attention",))
+    serving instance's head dim (D 128). With ``cfg`` (a reduced MoE
+    config, f32) the same calls on that model, routes held equal."""
+    if cfg is None:
+        over = dict(head_dim=128) if dtype == torch.bfloat16 else {}
+        cfg = get_config("gemma2-27b").reduced(**over)
+        label = f"gemma2-27b reduced {over} (dense cache)"
+    else:
+        label = f"{cfg.name} (dense cache)"
+    mp = _ModelParity(label, dtype, ("flash_attention",),
+                      n_layers=cfg.n_layers if cfg.family == "moe" else 0)
     rparams, dparams = mp.params(
         tf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32))
     rng = np.random.default_rng(4)
@@ -1037,7 +1198,7 @@ def phase_model_dense(dtype=torch.float32) -> None:
         (lc, _), (lg, _) = mp.run(
             lambda *a: tf.lm_step(*a, **kw),
             (cfg, rparams, slot_of(rcache), t.to(mp.ref_dev)),
-            (cfg, dparams, slot_of(dcache), t.to(DEV)))
+            (cfg, dparams, slot_of(dcache), t.to(DEV)), real=[n])
         mp.agree(lg[:, :n], lc[:, :n], f"lm_step logits @{start}")
         mp.same_next(lg[0, n - 1], lc[0, n - 1], f"lm_step @{start}")
         if not torch.isfinite(lg).all():
@@ -1051,7 +1212,7 @@ def phase_model_dense(dtype=torch.float32) -> None:
     (lc, _), (lg, _) = mp.run(
         tf.lm_decode, (cfg, rparams, rcache, t.to(mp.ref_dev),
                        pos.to(mp.ref_dev)),
-        (cfg, dparams, dcache, t.to(DEV), pos.to(DEV)))
+        (cfg, dparams, dcache, t.to(DEV), pos.to(DEV)), real=[2])
     mp.agree(lg[:2], lc[:2], "lm_decode logits")
     mp.same_next(lg[:2], lc[:2], "lm_decode")
     caches("lm_decode")
@@ -1117,6 +1278,188 @@ def phase_model_rwkv() -> None:
     log(f"[model] rwkv6-1.6b reduced f32: card vs cpu max abs err "
         f"{worst:.3e} of the largest magnitude (tol {MODEL_TOL}); next "
         f"tokens equal")
+
+
+def _moe_ffn_full_width() -> None:
+    """One full-width Qwen3-Coder ``moe_ffn`` (E 128, K 8, D 2048, F 768)
+    over 256 tokens in f32, card against CPU on the same weights (drawn
+    with JAX's init_moe scales): routes and capacity slots equal (the
+    capacity, 20 an expert, drops entries by design), outputs within
+    MOE_FFN_REL_TOL of the largest output."""
+    from repro_torch.models import layers
+    cfg, T = QWEN3, 256
+    m, D = cfg.moe, cfg.d_model
+    E, Fe = m.num_experts, m.d_ff_expert
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    p = {"router": torch.randn((D, E), generator=gen, device=DEV) * D ** -0.5,
+         "w_gate": torch.randn((E, D, Fe), generator=gen, device=DEV)
+         * D ** -0.5,
+         "w_up": torch.randn((E, D, Fe), generator=gen, device=DEV)
+         * D ** -0.5,
+         "w_down": torch.randn((E, Fe, D), generator=gen, device=DEV)
+         * Fe ** -0.5}
+    x = torch.randn((1, T, D), generator=gen, device=DEV)
+    with _routes() as got_r:
+        got = layers.moe_ffn(cfg, p, x)
+    torch.cuda.synchronize()
+    with _routes() as want_r:
+        want = layers.moe_ffn(cfg, {k: v.cpu() for k, v in p.items()},
+                              x.cpu())
+    g, w = got_r[0], want_r[0]
+    if not (torch.equal(g["idx"], w["idx"])
+            and torch.equal(g["pos"], w["pos"])):
+        raise AssertionError("moe_ffn full width: routes or capacity slots "
+                             "differ between card and CPU")
+    scale = want.abs().max().item()
+    err = (got.cpu() - want).abs().max().item()
+    if not err <= MOE_FFN_REL_TOL * scale:
+        raise AssertionError(f"moe_ffn full width: max abs err {err} > "
+                             f"{MOE_FFN_REL_TOL} x {scale}")
+    cap = max(8, int(T * m.top_k / E * m.capacity_factor))
+    log(f"[model] moe_ffn full width f32 (E {E}, K {m.top_k}, D {D}, F "
+        f"{Fe}, {T} tokens, capacity {cap} an expert): routes "
+        f"and slots equal, {int((~w['keep']).sum())} of "
+        f"{w['keep'].numel()} entries "
+        f"dropped; card vs cpu max abs err {err:.3e} of {scale:.3e} (tol "
+        f"{MOE_FFN_REL_TOL} x)")
+
+
+MOE_BF16 = dict(layers=4, page=32, P=420, Np=48, C=256,
+                lanes=(457, 1090, 1131, 1160, 1188, 1216, 1270, 1310))
+
+
+def _moe_bf16_pass(cfg, params, k0, v0, pin: bool) -> None:
+    """One pass of phase_model_moe_bf16's calls with a fresh pair of
+    pools from k0/v0 (f32, on the card). ``pin``: the kernel side routes
+    as the plain side did, and logits, next tokens and the pool slots each
+    real token wrote are compared on every token; otherwise both sides
+    route freely and the re-routed tokens are only counted."""
+    bf16, S = torch.bfloat16, MOE_BF16
+    page, P, Np, C = S["page"], S["P"], S["Np"], S["C"]
+    V, scratch = cfg.vocab_size, S["P"] - 1
+    mp = _ModelParity(f"qwen3-coder-30b-a3b full width, {cfg.n_layers} "
+                      "layers", bf16, ("paged_flash_attention",
+                                       "paged_attention_fused"),
+                      n_layers=cfg.n_layers, pin=pin)
+    rcache, dcache = mp.cache(tf.PagedKVCache, k0, v0)
+    rng = np.random.default_rng(8)
+    perm = rng.permutation(scratch)
+    i32 = (lambda a: torch.as_tensor(np.asarray(a, np.int32), device=DEV))
+
+    def table(pages):
+        t = np.full((Np,), scratch, np.int32)
+        t[:len(pages)] = pages
+        return t
+
+    def chunk(tab, start, n):
+        toks = np.zeros((1, C), np.int32)
+        toks[0, :n] = rng.integers(2, V, n)
+        pos = np.full((1, C), Np * page - 1, np.int32)
+        pos[0, :n] = np.arange(start, start + n)
+        wp = np.full((C,), scratch, np.int32)
+        wp[:n] = tab[(start + np.arange(n)) // page]
+        wo = np.arange(C, dtype=np.int32) % page
+        wo[:n] = (start + np.arange(n)) % page
+        return toks, pos, wp, wo
+
+    def slots(wp, wo, n, what):
+        """The pool slots the first ``n`` (real) tokens wrote, every
+        layer."""
+        if not pin:
+            return
+        wp, wo = (torch.as_tensor(a)[:n].long().to(DEV) for a in (wp, wo))
+        for name in ("k", "v"):
+            mp.agree(getattr(dcache, name)[:, wp, wo],
+                     getattr(rcache, name)[:, wp, wo], f"{what} {name} slots")
+
+    def logits(got, want, what):
+        if pin:
+            mp.agree(got, want, what + " logits")
+            mp.same_next(got, want, what)
+
+    def both(fn, *args, real):
+        return mp.run(fn, (cfg, params, rcache, *map(i32, args)),
+                      (cfg, params, dcache, *map(i32, args)), real)
+
+    tab_a = table(perm[:16])
+    nxt = 0
+    for start, n in ((0, C), (C, 200)):
+        toks, pos, wp, wo = chunk(tab_a, start, n)
+        (lc, _), (lg, _) = both(tf.lm_prefill_paged, toks, pos, tab_a, wp,
+                                wo, start + n, real=[n])
+        logits(lg[0, :n], lc[0, :n], f"prefill @{start}")
+        slots(wp, wo, n, f"prefill @{start}")
+        nxt = int(torch.argmax(lc[0, n - 1]))
+    # decode: lane 0 continues the prefill, lanes 1-7 read pool context
+    lens = np.array(S["lanes"], np.int32)
+    tabs, first = [tab_a], 16
+    for n in lens[1:]:
+        need = -(-(int(n) + 1) // page)
+        tabs.append(table(perm[first:first + need]))
+        first += need
+    tabs = np.stack(tabs)
+    B = len(lens)
+    d_toks = np.concatenate([[nxt], rng.integers(2, V, B - 1)])
+
+    def lanes(lens):
+        wp = tabs[np.arange(B), (lens - 1) // page]
+        return lens - 1, tabs, lens, wp, (lens - 1) % page
+
+    (lc, _), (lg, _) = both(tf.lm_decode_paged, d_toks, *lanes(lens),
+                            real=[B])
+    logits(lg, lc, "decode")
+    slots(*lanes(lens)[3:], B, "decode")
+    # one mixed iteration: a 230-token pack of a new sequence + the lanes
+    tab_b = table(perm[first:first + C // page])
+    toks, pos, wp, wo = chunk(tab_b, 0, 230)
+    d_toks = torch.argmax(lc, -1).cpu().numpy()
+    (pc, dc, _), (pg, dg, _) = both(
+        tf.lm_mixed_paged, toks[None], pos[None], tab_b[None], wp[None],
+        wo[None], [230], [229], d_toks, *lanes(lens + 1), real=[230, B])
+    slots(wp, wo, 230, "mixed pack")
+    slots(*lanes(lens + 1)[3:], B, "mixed decode")
+    if pin:
+        log(f"[model] bf16 full-width mixed next tokens: kernels "
+            f"{pg.tolist()}/{dg.tolist()}, plain {pc.tolist()}/"
+            f"{dc.tolist()}")
+    mp.done()
+
+
+def phase_model_moe_bf16() -> None:
+    """qwen3-coder-30b-a3b at full width with 4 layers, bf16, on the paged
+    pool: the kernels against the plain attention on the card (see
+    _ModelParity): two prefill chunks of C 256 (the second ragged, 200
+    real), a decode step over 8 lanes (one continuing the prefill, seven
+    over 1.1k-1.3k tokens of pool context), then one mixed iteration (a
+    pack of 230 real tokens of a new sequence plus the 8 lanes). Twice:
+    both sides routing freely, the re-routed tokens counted; then the
+    kernel side pinned to the plain side's routes, logits, next tokens and
+    the pool slots every real token wrote compared."""
+    cfg = dataclasses.replace(QWEN3, n_layers=MOE_BF16["layers"])
+    S = MOE_BF16
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = tf.init_lm(cfg, gen, torch.bfloat16, DEV)
+    shp = (cfg.n_layers, S["P"], S["page"], cfg.n_kv_heads, cfg.head_dim_)
+    k0 = torch.randn(shp, generator=gen, device=DEV) * 0.5
+    v0 = torch.randn(shp, generator=gen, device=DEV) * 0.5
+    for pin in (False, True):
+        _moe_bf16_pass(cfg, params, k0, v0, pin)
+
+
+def phase_model_moe() -> None:
+    """The MoE family: granite-moe-3b-a800m and qwen3-coder-30b-a3b
+    .reduced() through the paged calls of phase_model and the dense-cache
+    calls of phase_model_dense, f32, card against CPU, routes and capacity
+    slots equal; one full-width moe_ffn in f32; then qwen3-coder-30b-a3b
+    at full width with 4 layers in bf16."""
+    for cfg in (get_config("granite-moe-3b-a800m").reduced(),
+                QWEN3.reduced()):
+        phase_model(torch.float32, cfg)
+        phase_model_dense(torch.float32, cfg)
+    _moe_ffn_full_width()
+    phase_model_moe_bf16()
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1357,6 +1700,177 @@ def _carried_state_check(cfg, params, prompt, tool):
         raise AssertionError("serve-rwkv: carried state != recompute")
 
 
+MOE_SERVE = dict(jobs=8, shared_tokens=1024, tail_chunks=(2, 3, 4, 2),
+                 decode=16, total_pages=1024, token_budget=256)
+
+
+def _moe_jobs(run: int, V: int):
+    """The 8 jobs of a MoE serve run, in the shapes of ``_sessions``: two
+    families whose round-0 prompts share a 1,024-token prefix, a private
+    tail of 2-4 chunks plus 16 tokens, then 48- and 32-token rounds, two
+    sleep tools of 0.2-0.5 s. Per job: (job_id, [3 prompts], [2 tool
+    seconds], prefix-hash keys of the round-0 prompt)."""
+    rng = np.random.default_rng(200 + run)
+    shared = [rng.integers(2, V, MOE_SERVE["shared_tokens"]).tolist()
+              for _ in range(2)]
+    jobs = []
+    for i in range(MOE_SERVE["jobs"]):
+        fam, tail = i % 2, MOE_SERVE["tail_chunks"][i % 4]
+        first = shared[fam] + rng.integers(2, V, 32 * tail + 16).tolist()
+        prompts = [first, rng.integers(2, V, 48).tolist(),
+                   rng.integers(2, V, 32).tolist()]
+        hashes = [(("moe-fam", run, fam, c), 32)
+                  for c in range(MOE_SERVE["shared_tokens"] // 32)] + \
+            [(("moe-u", run, i, c), 32) for c in range(tail)] + \
+            [(("moe-u", run, i, "part"), 16)]
+        jobs.append((f"job-{run}-{i}", prompts,
+                     rng.uniform(0.2, 0.5, 2).tolist(), hashes))
+    return jobs
+
+
+def _serve_api(backend, run: int, *, force_offload: bool):
+    """One Engine run under MARS driven through ``ServingAPI``: each job's
+    round-0 request goes in at once, and each later request under the same
+    ``job_id`` when the job's previous response arrives (its future's
+    callback), as an agent sends its next turn. The round-0 prompts carry
+    their prefix-hash keys (a family's shared system prompt and history
+    are one radix prefix). Checks that every future resolves with 16
+    in-vocabulary tokens and a TTFT; under MARS that every job's second
+    round resumes warm (its KV pinned through the tool); under forced
+    OFFLOAD that a host swap-out happened."""
+    label = "offload" if force_offload else "mars"
+    V, d = backend.cfg.vocab_size, MOE_SERVE["decode"]
+    bus = EventBus()
+    tools = RealToolExecutor(cpu_slots=4, bus=bus)
+    eng = Engine(EngineConfig(total_kv_blocks=MOE_SERVE["total_pages"],
+                              block_size=32,
+                              token_budget=MOE_SERVE["token_budget"],
+                              max_decode_batch=8, cpu_slots=4,
+                              scheduler="mixed"),
+                 "mars", backend, bus=bus, tool_exec=tools)
+    if force_offload:
+        eng.policy.on_tool_yield = lambda s, now: (KVAction.OFFLOAD, 0.0)
+    api = ServingAPI(eng)
+    futures = {}
+
+    def request(job, r):
+        job_id, prompts, tool_s, _ = job
+        final = r == len(prompts) - 1
+        fut = api.submit(ChatRequest(
+            job_id=job_id, prompt_tokens=prompts[r], max_tokens=d,
+            tool_call=None if final else {"kind": "sleep",
+                                          "seconds": tool_s[r]},
+            final=final))
+        futures[job_id, r] = fut
+        if not final:
+            def next_request(f):
+                if f.exception() is None:
+                    request(job, r + 1)
+            fut.add_done_callback(next_request)
+
+    jobs = _moe_jobs(run, V)
+    for job in jobs:
+        request(job, 0)
+        api._jobs[job[0]].meta["prefix_hashes"] = list(job[3])
+    try:
+        t0 = time.monotonic()
+        run_live(eng, [], timeout=300)
+        wall = time.monotonic() - t0
+    finally:
+        tools.shutdown()
+    eng.check_invariants()
+    for job_id, prompts, _, _ in jobs:
+        s = api._jobs[job_id]
+        res = []
+        for r in range(len(prompts)):
+            fut = futures.get((job_id, r))
+            if fut is None or not fut.done():
+                raise AssertionError(f"serve-moe[{label}] {job_id}: round "
+                                     f"{r} never resolved")
+            res.append(fut.result())
+            toks = res[-1]["tokens"]
+            if len(toks) != d or not all(0 <= t < V for t in toks) or \
+                    res[-1]["round"] != r or res[-1]["ttft"] is None:
+                raise AssertionError(f"serve-moe[{label}] {job_id} round "
+                                     f"{r}: bad result {res[-1]}")
+        mine = [e for e in bus.log if e.sid == s.sid]
+        warm = any(a.kind == ev.UNPIN and a.data.get("warm")
+                   and b.kind == ev.GPU_SUBMIT and b.data.get("round") == 1
+                   for a, b in zip(mine, mine[1:]))
+        if not force_offload and not warm:
+            raise AssertionError(f"serve-moe[mars] {job_id}: the second "
+                                 "round did not resume warm")
+        log(f"[serve-moe:{label}] {job_id} sid={s.sid} e2e="
+            f"{s.e2e_latency:.3f}s ttfts={[round(x['ttft'], 4) for x in res]}"
+            f" warm_round1={warm}")
+    if api.active_jobs():
+        raise AssertionError(f"serve-moe[{label}]: jobs still active")
+    outs = [e for e in bus.log if e.kind == ev.SWAP_OUT
+            and e.data.get("tier") == "host"]
+    log(f"[serve-moe:{label}] finished {len(eng.finished)}/{len(jobs)} jobs "
+        f"in {wall:.2f}s wall, prefix_hit_tokens={eng.prefix_hit_tokens}, "
+        f"host swap-outs={len(outs)}, cow={eng.blocks.cow_count}")
+    if len(eng.finished) != len(jobs):
+        raise AssertionError(f"serve-moe[{label}]: {len(eng.finished)} of "
+                             f"{len(jobs)} jobs finished")
+    if force_offload and not outs:
+        raise AssertionError("serve-moe[offload]: no host SWAP_OUT")
+
+
+def phase_serve_moe():
+    """Full-width qwen3-coder-30b-a3b (48 layers, 128 experts top-8, Hq 32,
+    Hkv 4, D 128) in bf16, random weights from seed 0, on the paged layout
+    (1,024 pages of 32), driven through ServingAPI over Engine(scheduler=
+    "mixed") under MARS, then with every tool yield forced to OFFLOAD.
+    Launch counters zeroed after the backend is built (calibrate runs the
+    model), read after both runs: both paged kernels must launch. Returns
+    the MoE launches and the backend (its weights and pool feed the MoE
+    profile)."""
+    cfg = QWEN3
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    backend = TorchBackend(cfg, device=DEV, dtype=torch.bfloat16, seed=0,
+                           total_pages=MOE_SERVE["total_pages"],
+                           page_size=32, max_slots=8)
+    torch.cuda.synchronize()
+    if backend.layout != "paged":
+        raise AssertionError(f"qwen3 took the {backend.layout} layout")
+    m = cfg.moe
+    log(f"[serve-moe] qwen3-coder-30b-a3b full width (L={cfg.n_layers} "
+        f"d={cfg.d_model} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads} "
+        f"Dh={cfg.head_dim_} E={m.num_experts} top-{m.top_k} "
+        f"F={m.d_ff_expert} V={cfg.vocab_size}) bf16, "
+        f"{MOE_SERVE['total_pages']} pages of 32: set-up "
+        f"{time.monotonic() - t0:.2f}s, device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; calibrated prefill "
+        f"{1.0 / backend.prefill_rate() * 1e6:.1f} us/token, decode step "
+        f"{backend._decode_s_per_step * 1e3:.2f} ms")
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+    try:
+        _serve_api(backend, 0, force_offload=False)
+        _serve_api(backend, 1, force_offload=True)
+    except BaseException:
+        backend.close()
+        raise
+    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    st = backend.dispatch_stats
+    log(f"[serve-moe] on {torch.cuda.get_device_name(0)}: dispatch_stats "
+        + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                      for k, v in st.items()}))
+    log(f"[serve-moe] swap_stream {json.dumps(backend.swap_stream_stats())}"
+        f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
+    log(f"[serve-moe] kernel launches on the MoE main path: {launches}")
+    if st["mixed_calls"] <= 0:
+        raise AssertionError("serve-moe: no mixed iteration ran")
+    for name in MAIN_PATH:
+        if launches[name] <= 0:
+            backend.close()
+            raise AssertionError(f"serve-moe: {name} never launched")
+    return launches, backend
+
+
 DENSE_SERVE = dict(prompts=(4608, 4608, 1024, 1024), decode=16, slots=4,
                    max_len=6144)
 
@@ -1462,7 +1976,10 @@ def device_ms(fn, key: str, iters: int = 50) -> float:
     of the call's kernels for ``""``), from the profiler's CUDA trace
     (CUPTI), warmed. For a launch shorter than
     its wrapper's host cost, CUDA events around a Python loop time the
-    host's enqueue instead of the kernel."""
+    host's enqueue instead of the kernel. The trace can miss kernel
+    records (on an H100 80GB HBM3 host: one in a 50-call trace as a rule,
+    once most of them), so the time is the mean of the records it holds
+    times the kernels a call launches, not their sum over the calls."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -1471,12 +1988,17 @@ def device_ms(fn, key: str, iters: int = 50) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if key in e.key
-                and "CUDA" in str(getattr(e, "device_type", "")))
+    evs = [e for e in prof.key_averages() if key in e.key
+           and "CUDA" in str(getattr(e, "device_type", ""))]
+    total = sum(e.device_time_total for e in evs)
+    n = sum(e.count for e in evs)
     if total <= 0:
         raise AssertionError(f"no device time for {key} in the trace")
-    return total / iters / 1e3
+    per_call = max(1, round(n / iters))
+    if n != per_call * iters:
+        log(f"[timing] device_ms({key!r}): {n} kernel records for {iters} "
+            f"calls of {per_call} kernel(s); the mean record counts")
+    return total / n * per_call / 1e3
 
 
 def _bound(nbytes: float, flops: float, peak: float):
@@ -1502,15 +2024,18 @@ def _cycle(fns):
 ROTATION = 6        # decode tables over disjoint pages: 6 x ~20 MB of KV
 
 
-def _decode_rows(gen, F):
-    """The two decode kernels at the main path (8 lanes at 1,090-1,377,
-    Hq 32, Hkv 8, D 64, page 32, bf16), each call on the next of
-    ROTATION tables over disjoint pages of one 4,096-page pool, and SDPA
-    on the next of as many dense copies (cold L2)."""
+def _decode_rows(gen, F, Hkv=8, D=64,
+                 names=("paged_attention_fused", "paged_attention"),
+                 long_lane=True):
+    """The decode kernels ``names`` at the main path (8 lanes at
+    1,090-1,377, Hq 32, Hkv 8, D 64, page 32, bf16; Qwen3-Coder's Hkv 4,
+    D 128 when asked), each call on the next of ROTATION tables over
+    disjoint pages of one 4,096-page pool, and SDPA on the next of as many
+    dense copies (cold L2); with ``long_lane`` also the 16,384-token lane
+    (else None)."""
     bf16, item = torch.bfloat16, 2
-    B, Hq, Hkv, D, page, maxp, P = 8, 32, 8, 64, 32, 64, 4096
-    lens = torch.tensor([1090, 1131, 1160, 1188, 1216, 1270, 1310, 1377],
-                        device=DEV).int()
+    B, Hq, page, maxp, P = 8, 32, 32, 64, 4096
+    lens = torch.tensor(MAIN_LENS, device=DEV).int()
     q, kp, vp, _, lens = _decode_case(gen, B, Hq, Hkv, D, page, P, maxp,
                                       bf16, lengths=lens)
     k_new = _randn(gen, (B, Hkv, D), bf16)
@@ -1531,7 +2056,7 @@ def _decode_rows(gen, F):
         q4, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
         for kd, vd in dense]
     rows = []
-    for name in ("paged_attention_fused", "paged_attention"):
+    for name in names:
         fused = name == "paged_attention_fused"
         if fused:
             calls = [lambda t=t, wp=wp, wo=wo: paged_attention_fused(
@@ -1558,8 +2083,9 @@ def _decode_rows(gen, F):
                          lib=_cycle(libs), warm=calls[0], warm_lib=libs[0],
                          nbytes=nbytes, flops=4.0 * n_kv * Hq * D,
                          key="paged_decode"))
-    long_lane = _long_lane(q[:1], kp, vp, k_new[:1], v_new[:1], tables, F)
-    return rows, long_lane
+    if not long_lane:
+        return rows, None
+    return rows, _long_lane(q[:1], kp, vp, k_new[:1], v_new[:1], tables, F)
 
 
 def _long_lane(q, kp, vp, k_new, v_new, tables, F):
@@ -1588,13 +2114,12 @@ def _long_lane(q, kp, vp, k_new, v_new, tables, F):
                 nbytes=nbytes, flops=4.0 * n * q.shape[1] * D)
 
 
-def phase_timing(errs: Errors, launches):
-    import torch.nn.functional as F
-    gen = torch.Generator(device=DEV).manual_seed(11)
+def _prefill_row(gen, F, Hkv=8, D=64):
+    """paged_flash_attention on a prefill pack as the serve phases see
+    it (C 256 at q_offset 1,024, Hq 32, bf16), the plain version and SDPA
+    over a dense copy of the same keys."""
     bf16, item = torch.bfloat16, 2
-    Hq, Hkv, D, page, P = 32, 8, 64, 32, 4096
-    rows, long_lane = _decode_rows(gen, F)
-    # a prefill pack as the serve phase sees it: C=256 of a ~1.3k context
+    Hq, page, P = 32, 32, 4096
     C, Np, q_off = 256, 64, 1024
     kv_len = q_off + C
     qp, kpp, vpp, tablep, kvl, qo = _prefill_case(
@@ -1611,11 +2136,47 @@ def phase_timing(errs: Errors, launches):
     run = (lambda: paged_flash_attention(qp, kpp, vpp, tablep, kvl, qo))
     lib = (lambda: F.scaled_dot_product_attention(
         qp, kdp, vdp, attn_mask=pmask, enable_gqa=True))
-    rows.append(dict(name="paged_flash_attention", run=run,
-                     plain=lambda: ref.paged_flash_attention_ref(
-                         qp, kpp, vpp, tablep, kvl, qo),
-                     lib=lib, warm=run, warm_lib=lib, nbytes=nbytes,
-                     flops=flops, key="_mma"))
+    return dict(name="paged_flash_attention", run=run,
+                plain=lambda: ref.paged_flash_attention_ref(
+                    qp, kpp, vpp, tablep, kvl, qo),
+                lib=lib, warm=run, warm_lib=lib, nbytes=nbytes,
+                flops=flops, key="_mma")
+
+
+def _qwen3_rows(errs, gen, F):
+    """The paged pair at Qwen3-Coder's attention (Hq 32, Hkv 4, D 128:
+    G 8), the shapes of the MoE serve: fused decode over 8 lanes at
+    1,090-1,377 (cold L2) and a C 256 pack. Returns {name: timings}."""
+    rows, _ = _decode_rows(gen, F, Hkv=4, D=128,
+                           names=("paged_attention_fused",), long_lane=False)
+    rows.append(_prefill_row(gen, F, Hkv=4, D=128))
+    out = {}
+    for row in rows:
+        name = row["name"]
+        errs.check(name, "sdpa_bf16", row["warm"](), row["warm_lib"](),
+                   BF16_TOL, "Qwen3 shapes vs library")
+        bound, by = _bound(row["nbytes"], row["flops"], BF16_FLOPS)
+        k_ms, p_ms = time_ms(row["run"]), time_ms(row["plain"])
+        l_ms = time_ms(row["lib"])
+        d_ms, ld_ms = device_ms(row["run"], row["key"]), \
+            device_ms(row["lib"], "")
+        out[name] = dict(shape="Hq 32, Hkv 4, D 128", ms=k_ms, device_ms=d_ms,
+                         plain_ms=p_ms, library_ms=l_ms,
+                         library_device_ms=ld_ms, bound_ms=bound,
+                         bound_by=by)
+        log(f"[timing] {name:22s} Qwen3 (G 8, D 128): kernel {k_ms:.4f} ms "
+            f"(device {d_ms:.4f})  plain {p_ms:.4f} ms  sdpa {l_ms:.4f} ms "
+            f"(device {ld_ms:.4f})  bound {bound:.4f} ms ({by}: "
+            f"{row['nbytes'] / 1e6:.2f} MB, {row['flops'] / 1e9:.3f} GFLOP)"
+            f"  bound/kernel device {bound / d_ms:.3f}")
+    return out
+
+
+def phase_timing(errs: Errors, launches):
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    rows, long_lane = _decode_rows(gen, F)
+    rows.append(_prefill_row(gen, F))
     # the SDPA yardsticks compute the same function
     for row in rows:
         errs.check(row["name"], "sdpa_bf16", row["warm"](), row["warm_lib"](),
@@ -1669,6 +2230,8 @@ def phase_timing(errs: Errors, launches):
         f"{l_ms:.4f} ms (device {ld_ms:.4f})  bound {bound:.4f} ms ({by}: "
         f"{long_lane['nbytes'] / 1e6:.2f} MB)  bound/kernel device "
         f"{bound / d_ms:.3f}")
+    for name, sub in _qwen3_rows(errs, gen, F).items():
+        next(o for o in out if o["name"] == name)["qwen3"] = sub
     return out
 
 
@@ -1844,24 +2407,51 @@ def phase_wkv_timing(errs: Errors):
 # 7. profile one full-width mixed iteration
 # ---------------------------------------------------------------------------
 
-def phase_profile():
-    cfg = get_config("llama3.2-1b")
-    params = tf.init_lm(cfg, torch.Generator(device=DEV).manual_seed(1),
-                        torch.bfloat16, DEV)
-    page, P, Np, C, B = 32, 1024, 64, 256, 8
-    cache = tf.PagedKVCache.zeros(cfg, P + 1, page, torch.bfloat16, DEV)
-    lens = np.array([1090, 1131, 1160, 1188, 1216, 1270, 1310, 1377],
-                    np.int32)
+def _mixed_args(P: int, page: int = 32, Np: int = 64, C: int = 256,
+                B: int = 8):
+    """lm_mixed_paged's arguments for one full-width mixed iteration over
+    a pool of ``P`` pages: a pack of C at q_offset 1,024 on pages 512-575
+    plus B decode lanes at 1,090-1,377 on pages 0-511."""
+    lens = np.array(MAIN_LENS[:B], np.int32)
     d_tables = np.arange(B * Np, dtype=np.int32).reshape(B, Np) % P
     i32 = (lambda a: torch.as_tensor(np.asarray(a, np.int32), device=DEV))
-    args = (i32(np.zeros((1, 1, C))), i32((1024 + np.arange(C))[None, None]),
+    return (i32(np.zeros((1, 1, C))), i32((1024 + np.arange(C))[None, None]),
             i32(np.arange(Np)[None] + 512), i32(512 + (1024 + np.arange(C))
                                                 [None] // page),
             i32((1024 + np.arange(C))[None] % page), i32([1024 + C]),
             i32([C - 1]), i32(np.zeros(B)), i32(lens - 1), i32(d_tables),
             i32(lens), i32(d_tables[np.arange(B), (lens - 1) // page]),
             i32((lens - 1) % page))
-    _, device, mine = _profile(
+
+
+def _no_host_sync(fn, what: str) -> None:
+    """Runs ``fn`` once with CUDA's sync debug mode set to raise: a model
+    call that reads a device value back to the host (``.item()``, a
+    data-dependent shape, indexing with a 0-d device tensor) fails here.
+    ROADMAP item 1.2's CUDA-graph capture relies on there being none. The
+    mode is a prototype and may miss some synchronising operations."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{what}: a host sync inside the call: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[profile] {what}: no host sync (CUDA sync debug mode)")
+
+
+def phase_profile():
+    cfg = get_config("llama3.2-1b")
+    params = tf.init_lm(cfg, torch.Generator(device=DEV).manual_seed(1),
+                        torch.bfloat16, DEV)
+    page, P, C, B = 32, 1024, 256, 8
+    cache = tf.PagedKVCache.zeros(cfg, P + 1, page, torch.bfloat16, DEV)
+    args = _mixed_args(P)
+    _no_host_sync(lambda: tf.lm_mixed_paged(cfg, params, cache, *args),
+                  "llama3.2-1b lm_mixed_paged")
+    _, device, mine, _ = _profile(
         f"lm_mixed_paged full width, 1 pack C={C} + {B} decode lanes",
         lambda: tf.lm_mixed_paged(cfg, params, cache, *args),
         focus="paged_decode")
@@ -1870,12 +2460,105 @@ def phase_profile():
         f"{mine:.3f} of the iteration's {device:.3f} ms")
 
 
-def _profile(label: str, fn, traced: int = 3, focus: str = ""):
+MOE_PARTS = ("_route", "_dispatch", "_expert_ffn", "_combine")
+
+
+@contextlib.contextmanager
+def _moe_labels():
+    """Each MoE step of ``layers.moe_ffn`` inside a profiler range named
+    ``moe:<step>``, so that the trace sums its device time; restored on
+    exit. Only the traced calls run with it."""
+    from torch.profiler import record_function
+    from repro_torch.models import layers
+    saved = {n: getattr(layers, n) for n in MOE_PARTS}
+
+    def labelled(n, f):
+        def g(*a, **k):
+            with record_function(f"moe:{n}"):
+                return f(*a, **k)
+        return g
+    for n, f in saved.items():
+        setattr(layers, n, labelled(n, f))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(layers, n, f)
+
+
+def phase_profile_moe(backend) -> None:
+    """One full-width qwen3-coder-30b-a3b mixed iteration (a pack of C 256
+    at q_offset 1,024 plus 8 decode lanes at 1,090-1,377) on the serve's
+    weights and pool: wall against device time, idle share, and device
+    time by MoE step (route, dispatch, the expert products, combine) and
+    by paged kernel. Every forward runs every expert's products over its
+    capacity buffer, whatever the routing, as the JAX package does: the
+    iteration reads all 128 experts' weights twice."""
+    cfg, params, cache = backend.cfg, backend.params, backend._impl.cache
+    args = _mixed_args(cache.n_pages - 1)
+    m = cfg.moe
+    expert_bytes = 3 * m.num_experts * cfg.d_model * m.d_ff_expert * 2
+    floor = 2 * cfg.n_layers * expert_bytes / HBM_BYTES_PER_S * 1e3
+    _no_host_sync(lambda: tf.lm_mixed_paged(cfg, params, cache, *args),
+                  "qwen3-coder lm_mixed_paged")
+    wall, device, _, by_label = _profile(
+        f"qwen3-coder lm_mixed_paged full width, 1 pack C=256 + 8 decode "
+        f"lanes ({cfg.n_layers} layers, both forwards over all "
+        f"{m.num_experts} experts)",
+        lambda: tf.lm_mixed_paged(cfg, params, cache, *args),
+        labels=[f"moe:{n}" for n in MOE_PARTS], traced_ctx=_moe_labels,
+        kernels={"paged_decode": "paged_attention_fused",
+                 "_mma": "paged_flash_attention"})
+    parts = "  ".join(f"{k} {v:.3f}" for k, v in by_label.items())
+    log(f"[profile-moe] device ms/iter by part: {parts}; the rest "
+        f"{device - sum(by_label.values()):.3f} (projections, lm_head, "
+        f"norms, copies)")
+    log(f"[profile-moe] the expert weights read twice (prefill pack and "
+        f"decode forwards): {2 * cfg.n_layers * expert_bytes / 1e9:.1f} GB,"
+        f" {floor:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s (reckoned);"
+        f" device {device:.3f} ms, wall {wall:.3f} ms")
+    _rank_scan_layouts(m, T=256)
+
+
+def _rank_scan_layouts(m, T: int) -> None:
+    """Why ``_dispatch`` holds its one-hot expert-major: the capacity
+    ranks of one C-256 pack (T*K entries over E experts) scanned along
+    the rows of (E, T*K), as the port does, against down the columns of
+    (T*K, E), the layout of JAX's scan; device time per call, the same
+    ranks."""
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    E, N = m.num_experts, T * m.top_k
+    flat = torch.randint(0, E, (N,), generator=gen, device=DEV)
+
+    def token_major():
+        oh = torch.zeros((N, E), dtype=torch.int32, device=DEV)
+        oh.scatter_(1, flat[:, None], 1)
+        return torch.cumsum(oh, 0, dtype=torch.int32).gather(
+            1, flat[:, None])[:, 0]
+
+    def expert_major():
+        oh = torch.zeros((E, N), dtype=torch.int32, device=DEV)
+        oh.scatter_(0, flat[None], 1)
+        return torch.cumsum(oh, 1, dtype=torch.int32).gather(0, flat[None])[0]
+    if not torch.equal(token_major(), expert_major()):
+        raise AssertionError("rank scan layouts disagree")
+    ms = {name: device_ms(fn, "") for name, fn in
+          (("expert-major", expert_major), ("token-major", token_major))}
+    log(f"[profile-moe] dispatch rank scan of {N} entries over {E} experts:"
+        f" expert-major (the port) {ms['expert-major']:.4f} ms, token-major "
+        f"{ms['token-major']:.4f} ms of device time a call")
+
+
+def _profile(label: str, fn, traced: int = 3, focus: str = "", labels=(),
+             traced_ctx=contextlib.nullcontext, kernels=None):
     """Wall time per call with the profiler off (5 calls after 2 warm-up
-    calls) and device time by kernel over ``traced`` profiled calls; logs
-    the idle share, the top kernels and the device-time share of the
-    kernels whose name holds ``focus``. Returns (wall_ms, device_ms,
-    focus_ms), all per call."""
+    calls) and device time by kernel over ``traced`` profiled calls (run
+    inside ``traced_ctx()``); logs the idle share, the top kernels and the
+    device-time share of the kernels whose name holds ``focus``. Returns
+    (wall_ms, device_ms, focus_ms, parts), all per call; ``parts`` maps
+    each of ``labels`` (profiler ranges) to the device time of the kernels
+    launched inside it, and each value of ``kernels`` ({name substring:
+    part}) to the device time of the kernels whose name holds the key."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
@@ -1885,18 +2568,21 @@ def _profile(label: str, fn, traced: int = 3, focus: str = ""):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3 / 5     # profiler off
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced_ctx(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
         for _ in range(traced):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_time_total", 0) > 0
+    avg = prof.key_averages()
+    # kernels only: a range's device-side copy would count its span again
+    evs = [e for e in avg
+           if getattr(e, "device_time_total", 0) > 0 and e.key not in labels
            and "CUDA" in str(getattr(e, "device_type", ""))]
     total = sum(e.device_time_total for e in evs) / (traced * 1e3)
+    launches = sum(e.count for e in evs) / traced
     log(f"[profile] {label}: wall {wall_ms:.3f} ms/iter (profiler off), "
         f"device {total:.3f} ms/iter, idle share "
-        f"{max(0.0, 1 - total / wall_ms):.3f}")
+        f"{max(0.0, 1 - total / wall_ms):.3f}, {launches:.0f} kernels/iter")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:8]:
         log(f"[profile]   {e.device_time_total / (traced * 1e3):9.3f} "
             f"ms/iter x{e.count // traced:4d}  {e.key[:90]}")
@@ -1908,7 +2594,21 @@ def _profile(label: str, fn, traced: int = 3, focus: str = ""):
             traced * 1e3)
         log(f"[profile]   {focus}: {mine:.3f} ms/iter, share of device time "
             f"{mine / total:.3f}, of wall time {mine / wall_ms:.3f}")
-    return wall_ms, total, mine
+    by_label = {}
+    for name in labels:
+        # the range's CPU-side entry sums the device time of the kernels
+        # launched inside it (its device-side entry is its span, gaps
+        # included)
+        times = [e.device_time_total for e in avg if e.key == name
+                 and "CUDA" not in str(getattr(e, "device_type", ""))]
+        by_label[name] = max(times, default=0.0) / (traced * 1e3)
+        if not by_label[name]:
+            log(f"[profile]   {name}: no device time in the trace, not "
+                "measured")
+    for key, name in (kernels or {}).items():
+        by_label[name] = sum(e.device_time_total for e in evs
+                             if key in e.key) / (traced * 1e3)
+    return wall_ms, total, mine, by_label
 
 
 def phase_profile_rwkv(params) -> None:
@@ -1944,7 +2644,8 @@ def phase_profile_dense(backend) -> None:
     d_pos = torch.tensor([4700, 4650, 1100, 1050][:R], dtype=torch.int32,
                          device=DEV)
     d_toks = torch.zeros((R,), dtype=torch.int32, device=DEV)
-    wall, _, _ = _profile(f"dense lm_decode step over {R} slots of {Smax}",
+    wall, _, _, _ = _profile(f"dense lm_decode step over {R} slots of "
+                             f"{Smax}",
                           lambda: tf.lm_decode(cfg, params, cache, d_toks,
                                                d_pos))
     # the decode step's plain attention alone, at its shapes, per kind
@@ -2024,6 +2725,9 @@ def main() -> int:
     phase_model_rwkv()
     log(f"[model] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
+    phase_model_moe()
+    log(f"[model-moe] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
     launches = phase_serve()
     log(f"[serve] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
@@ -2042,9 +2746,24 @@ def main() -> int:
     t0 = time.monotonic()
     phase_profile_rwkv(rwkv_params)
     log(f"[profile-rwkv] done in {time.monotonic() - t0:.2f}s")
-    del rwkv_params                  # free the card for gemma2-27b
+    del rwkv_params                  # free the card for qwen3-coder
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    moe_launches, backend = phase_serve_moe()
+    log(f"[serve-moe] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    try:
+        phase_profile_moe(backend)
+    finally:
+        backend.close()
+    log(f"[profile-moe] done in {time.monotonic() - t0:.2f}s")
+    del backend                      # 61 GB of weights: free the card for
+    gc.collect()                     # gemma2-27b's ~64 GB
+    torch.cuda.empty_cache()
+    log(f"[serve-moe] launches (logged apart; the kernels JSON keeps the "
+        f"llama serve's): {moe_launches}; device memory after freeing "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     t0 = time.monotonic()
     dense_launches, backend = phase_serve_dense()
     log(f"[serve-dense] done in {time.monotonic() - t0:.2f}s")

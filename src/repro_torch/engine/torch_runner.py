@@ -83,10 +83,11 @@ class TorchBackend:
                                "versions on the CPU")
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port serves the dense family "
-                "(ROADMAP.md, 'Modules still to port')")
+                f"family {cfg.family!r}: the live runner serves the LM "
+                "families, dense and moe (ROADMAP.md, 'Modules still to "
+                "port')")
         if layout not in ("paged", "dense"):
             raise ValueError(f"unknown layout {layout!r}")
         if layout == "paged" and not supports_paged(cfg):

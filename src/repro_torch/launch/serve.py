@@ -18,6 +18,10 @@ backend.
     PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
         --arch gemma2-27b --full-width
 
+    # an MoE model (40 experts, top-8) on the paged layout
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend torch \\
+        --arch granite-moe-3b-a800m --full-width
+
 ``--device cpu`` runs the live engine on the CPU with the kernels' plain
 versions; without it the live engine needs a CUDA card and raises when
 there is none.

@@ -1,6 +1,7 @@
 """Shared functional layers of the serving paths: norms, RoPE, GQA
-projections, (gated) MLP, the position-driven dense attention of the JAX
-package and the attention kernel calls.
+projections, (gated) MLP, the capacity-dispatched MoE FFN, the
+position-driven dense attention of the JAX package and the attention kernel
+calls.
 
 Everything is a plain function of ``(params, inputs)``; parameters are
 dicts of tensors, as in ``repro.models.layers``. Where the JAX package asks
@@ -33,6 +34,17 @@ def matmul_f32(x, w):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.to(F32) @ w.to(F32)
+
+
+def bmm_f32(x, w):
+    """Batched ``x @ w`` with a float32 result and float32 accumulation:
+    the counterpart of ``jnp.einsum("ecd,edf->ecf", ...,
+    preferred_element_type=F32)``. x: (E, C, K); w: (E, K, N)."""
+    if x.dtype == F32 and w.dtype == F32:
+        return torch.bmm(x, w)
+    if x.is_cuda:
+        return torch.bmm(x, w, out_dtype=F32)
+    return torch.bmm(x.to(F32), w.to(F32))
 
 
 # ---------------------------------------------------------------------------
@@ -265,3 +277,86 @@ def mlp(cfg: ModelConfig, p: Params, x):
         h = act(up)
     h = h.to(x.dtype)
     return matmul_f32(h, p["w_down"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE: capacity-based dispatch (GShard-style, scatter formulation), as in
+# the JAX package. Every function is free of host syncs and of shapes that
+# depend on the data: the capacity comes from shapes alone, overflowing
+# entries go to a dump row instead of being filtered out.
+# ---------------------------------------------------------------------------
+
+def _route(moe, logits):
+    """logits (T, E) -> (topk_idx (T, K) int64, topk_w (T, K) normalised).
+    ``torch.topk`` sorted descending, as ``lax.top_k``."""
+    probs = torch.softmax(logits.to(F32), dim=-1)
+    w, idx = torch.topk(probs, moe.top_k, dim=-1, largest=True, sorted=True)
+    w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-9)
+    return idx, w
+
+
+def _dispatch(x, idx, w, num_experts: int, capacity: int):
+    """Scatter tokens into per-expert capacity buffers.
+
+    x: (T, D); idx/w: (T, K). Returns buf (E, C, D) and the gather metadata
+    (flat_e, pos_c, keep), each (T*K,). An entry's slot is its rank among
+    the entries routed to its expert in token-major, k-minor order (the
+    order of JAX's scan, which decides who overflows); entries ranked past
+    ``capacity`` land in the dump row ``capacity`` and are dropped. The
+    one-hot is held expert-major, (E, T*K), so that the rank scan runs
+    along its contiguous rows: a scan down the columns of (T*K, E) is a
+    slow kernel on the card.
+    """
+    T, D = x.shape
+    K = idx.shape[1]
+    flat_e = idx.reshape(-1)                                   # (T*K,)
+    onehot = torch.zeros((num_experts, T * K), dtype=torch.int32,
+                         device=x.device).scatter_(0, flat_e[None], 1)
+    ranks = torch.cumsum(onehot, dim=1, dtype=torch.int32)
+    pos = ranks.gather(0, flat_e[None])[0].long() - 1          # (T*K,)
+    keep = pos < capacity
+    pos_c = torch.where(keep, pos, capacity)       # overflow -> dump row
+    buf = torch.zeros((num_experts, capacity + 1, D), dtype=x.dtype,
+                      device=x.device)
+    src = x.repeat_interleave(K, dim=0)                        # (T*K, D)
+    buf.index_put_((flat_e, pos_c), src, accumulate=True)
+    return buf[:, :capacity], (flat_e, pos_c, keep)
+
+
+def _combine(expert_out, meta, w, T: int):
+    """expert_out (E, C, D) -> (T, D): each token's kept entries, weighted
+    by their route weights and summed over its K choices."""
+    flat_e, pos_c, keep = meta
+    K = w.shape[1]
+    E, C, D = expert_out.shape
+    padded = torch.cat([expert_out, expert_out.new_zeros((E, 1, D))], dim=1)
+    gathered = padded[flat_e, pos_c]                           # (T*K, D)
+    gathered = torch.where(keep[:, None], gathered, 0.0)
+    gathered = gathered.reshape(T, K, D) * w[..., None].to(expert_out.dtype)
+    return torch.sum(gathered, dim=1)
+
+
+def _expert_ffn(cfg: ModelConfig, p: Params, buf):
+    """buf (E, C, D) -> (E, C, D) through each expert's gated MLP."""
+    act = _act(cfg.act)
+    g = bmm_f32(buf, p["w_gate"])
+    u = bmm_f32(buf, p["w_up"])
+    h = (act(g) * u).to(buf.dtype)
+    return bmm_f32(h, p["w_down"]).to(buf.dtype)
+
+
+def moe_ffn(cfg: ModelConfig, p: Params, x):
+    """Single-device MoE FFN. x: (B, S, D), every row of it routed, padded
+    lanes included (they count towards the capacity, as in JAX). The
+    sharding arguments of the JAX function (``pctx``, ``token_shard``)
+    only act under a mesh and are not ported."""
+    m = cfg.moe
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    logits = matmul_f32(xt, p["router"])
+    idx, w = _route(m, logits)
+    capacity = max(8, int(B * S * m.top_k / m.num_experts
+                          * m.capacity_factor))
+    buf, meta = _dispatch(xt, idx, w, m.num_experts, capacity)
+    out = _expert_ffn(cfg, p, buf)
+    return _combine(out, meta, w, B * S).reshape(B, S, D)

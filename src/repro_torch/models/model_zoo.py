@@ -1,5 +1,5 @@
 """Family dispatcher: the uniform API of ``repro.models.model_zoo`` over the
-families the port serves so far (``dense`` and ``rwkv6``).
+families the port serves so far (``dense``, ``moe`` and ``rwkv6``).
 
     init(cfg, seed, dtype, device)              -> params
     forward(cfg, params, batch)                 -> logits   (full sequence)
@@ -29,8 +29,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import TensorSpec
 
 _TODO = {
-    "moe": "the MoE chain is not ported yet: ROADMAP.md, 'Modules still to "
-           "port', 'The MoE chain'",
     "zamba2": "zamba2 is not ported yet: ROADMAP.md, 'Modules still to "
               "port', 'Other families'",
     "whisper": "whisper is not ported yet: ROADMAP.md, 'Modules still to "
@@ -39,7 +37,11 @@ _TODO = {
 
 
 def _family(cfg: ModelConfig) -> str:
-    if cfg.family in ("dense", "rwkv6"):
+    """``"lm"`` for the decoder-only transformers (dense and moe, as in
+    JAX's model_zoo), ``"rwkv6"``; the families still to port raise."""
+    if cfg.family in ("dense", "moe"):
+        return "lm"
+    if cfg.family == "rwkv6":
         return cfg.family
     if cfg.family in _TODO:
         raise NotImplementedError(_TODO[cfg.family])
@@ -67,32 +69,32 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     family = _family(cfg)
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if family == "dense":
+    if family == "lm":
         return tf.init_lm(cfg, gen, dtype, dev)
     return rwkv6.init_rwkv(cfg, gen, dtype, dev)
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, Any]):
-    if _family(cfg) == "dense":
+    if _family(cfg) == "lm":
         return tf.lm_forward(cfg, params, _tokens(batch))
     return rwkv6.rwkv_forward(cfg, params, _tokens(batch))
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, Any]):
-    if _family(cfg) == "dense":
+    if _family(cfg) == "lm":
         return tf.lm_prefill(cfg, params, _tokens(batch))
     return rwkv6.rwkv_prefill(cfg, params, _tokens(batch))
 
 
 def decode(cfg: ModelConfig, params, cache, tokens, positions):
-    if _family(cfg) == "dense":
+    if _family(cfg) == "lm":
         return tf.lm_decode(cfg, params, cache, tokens, positions)
     return rwkv6.rwkv_decode(cfg, params, cache, tokens, positions)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16):
-    if _family(cfg) == "dense":
+    if _family(cfg) == "lm":
         shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
         return tf.KVCache(TensorSpec(shp, dtype), TensorSpec(shp, dtype))
     return rwkv6.RWKVState.specs(cfg, batch, dtype)

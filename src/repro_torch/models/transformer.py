@@ -1,5 +1,6 @@
 """Decoder-only LM: the serving paths of ``repro.models.transformer``
-(dense family) in PyTorch, on a paged KV pool and on the dense slot cache.
+(dense and MoE families) in PyTorch, on a paged KV pool and on the dense
+slot cache.
 
 The layer ``scan`` of the JAX package becomes a loop over the stacked
 per-layer weights, and the pack ``scan`` of ``lm_mixed_paged`` a loop over
@@ -7,7 +8,9 @@ packs; the gemma2 local/global alternation is a per-layer Python flag. JAX's
 functional, donated cache updates become **in-place** writes into the
 cache tensors: ``lm_step`` and every ``lm_*_paged`` function mutate
 ``cache.k`` / ``cache.v`` and still return the cache, so call sites read
-like the reference. Only the ``dense`` family is ported; ``moe`` raises.
+like the reference. An ``moe`` layer's FFN is ``layers.moe_ffn`` over the
+layer's own (padded) token set, as in JAX; its expert-parallel form
+(``moe_ffn_ep_local``) is not ported.
 """
 from __future__ import annotations
 
@@ -19,14 +22,9 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (F32, apply_norm, attention, attn_out,
                                        attn_qkv, dense_prefill_attention,
-                                       matmul_f32, mlp,
+                                       matmul_f32, mlp, moe_ffn,
                                        paged_decode_attention,
                                        paged_prefill_attention)
-
-_MOE_TODO = ("the MoE chain (_route/_dispatch/_combine/_expert_ffn) is not "
-             "ported yet: ROADMAP.md, 'Modules still to port', 'The MoE "
-             "chain'")
-
 
 # ---------------------------------------------------------------------------
 # init
@@ -62,10 +60,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     """Random weights with the shapes and scales of
     ``repro.models.transformer.init_lm`` (not its bits: torch draws
     differently). Per-layer weights are stacked under ``"layers"`` with a
-    leading ``n_layers`` axis. ``generator`` must live on ``device``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(_MOE_TODO if cfg.family == "moe"
-                                  else f"family {cfg.family!r}")
+    leading ``n_layers`` axis; an ``moe`` layer carries ``"moe"`` (the
+    router and the stacked experts of JAX's ``init_moe``) where a dense one
+    carries ``"mlp"``. ``generator`` must live on ``device``."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"family {cfg.family!r} is not a transformer LM")
     D, L = cfg.d_model, (cfg.n_layers,)
     Fd = cfg.d_ff
 
@@ -80,12 +79,19 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
         for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
                           ("bv", cfg.kv_dim)):
             attn[name] = torch.zeros((*L, dim), dtype=dtype, device=device)
-    mlp_p = {"w_up": nrm((*L, D, Fd), D ** -0.5),
-             "w_down": nrm((*L, Fd, D), Fd ** -0.5)}
-    if cfg.gated_mlp:
-        mlp_p["w_gate"] = nrm((*L, D, Fd), D ** -0.5)
     layers = {"ln_attn": _norm_params(cfg, L, D, dtype, device), "attn": attn,
-              "ln_mlp": _norm_params(cfg, L, D, dtype, device), "mlp": mlp_p}
+              "ln_mlp": _norm_params(cfg, L, D, dtype, device)}
+    if cfg.family == "moe":
+        E, Fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+        layers["moe"] = {"router": nrm((*L, D, E), D ** -0.5),
+                         "w_gate": nrm((*L, E, D, Fe), D ** -0.5),
+                         "w_up": nrm((*L, E, D, Fe), D ** -0.5),
+                         "w_down": nrm((*L, E, Fe, D), Fe ** -0.5)}
+    else:
+        layers["mlp"] = {"w_up": nrm((*L, D, Fd), D ** -0.5),
+                         "w_down": nrm((*L, Fd, D), Fd ** -0.5)}
+        if cfg.gated_mlp:
+            layers["mlp"]["w_gate"] = nrm((*L, D, Fd), D ** -0.5)
     if cfg.post_sublayer_norm:
         layers["ln_post_attn"] = _norm_params(cfg, L, D, dtype, device)
         layers["ln_post_mlp"] = _norm_params(cfg, L, D, dtype, device)
@@ -136,15 +142,17 @@ def _unembed(cfg: ModelConfig, params, x):
 
 
 def _ffn_residual(cfg: ModelConfig, lp, x, o):
-    """Residual add of the attention output, then the MLP sublayer."""
+    """Residual add of the attention output, then the MLP (or MoE)
+    sublayer."""
     o = attn_out(lp["attn"], o)
     if cfg.post_sublayer_norm:
         o = apply_norm(cfg, lp["ln_post_attn"], o)
     x = x + o
     h2 = apply_norm(cfg, lp["ln_mlp"], x)
     if cfg.family == "moe":
-        raise NotImplementedError(_MOE_TODO)
-    f = mlp(cfg, lp["mlp"], h2)
+        f = moe_ffn(cfg, lp["moe"], h2)
+    else:
+        f = mlp(cfg, lp["mlp"], h2)
     if cfg.post_sublayer_norm:
         f = apply_norm(cfg, lp["ln_post_mlp"], f)
     return x + f
@@ -423,7 +431,10 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
         logits, cache = lm_prefill_paged(
             cfg, params, cache, p_tokens[j], p_positions[j], p_tables[j],
             p_write_pages[j], p_write_offsets[j], p_kv_lens[j])
-        nxt.append(torch.argmax(logits[0, p_last_idx[j].long()], dim=-1))
+        # a one-element index tensor, not a 0-d one: indexing with a 0-d
+        # CUDA tensor reads it back to the host (a sync per pack)
+        last = p_last_idx[j:j + 1].long()
+        nxt.append(torch.argmax(logits[0, last], dim=-1)[0])
     p_next = (torch.stack(nxt).to(torch.int32) if nxt
               else torch.zeros((0,), dtype=torch.int32, device=dev))
     if d_tokens.shape[0] > 0:

@@ -1,6 +1,9 @@
 """The port's model paths on the CPU against the JAX package: the paged
 path on ``llama3.2-1b``, the dense-cache path (``lm_forward``, chunked
-``lm_step``, ``lm_decode``) on ``gemma2-27b`` and ``llama3.2-1b``.
+``lm_step``, ``lm_decode``) on ``gemma2-27b``, ``llama3.2-1b``,
+``qwen2.5-3b`` (qkv bias, tied embeddings), ``internlm2-20b`` and
+``llava-next-34b``. The ``check_*`` bodies also serve the MoE family
+(tests/test_torch_moe.py).
 
 Weights come from ``repro.models.model_zoo.init`` on the ``.reduced()``
 configs (gemma2's post norms and tied embeddings included) and are carried
@@ -41,7 +44,8 @@ def model():
     return _load("llama3.2-1b")
 
 
-DENSE_ARCHS = ["gemma2-27b", "llama3.2-1b"]
+DENSE_ARCHS = ["gemma2-27b", "llama3.2-1b", "qwen2.5-3b", "internlm2-20b",
+               "llava-next-34b"]
 
 
 @pytest.fixture(scope="module", params=DENSE_ARCHS)
@@ -146,6 +150,11 @@ def _decode_inputs(page, scratch, lens, tables):
 
 
 def test_lm_decode_paged_matches_jax(model):
+    check_lm_decode_paged(model)
+
+
+def check_lm_decode_paged(model):
+    """Four decode lanes (two long, one short, one idle) in one step."""
     cfg, jcfg, jparams, tparams = model
     page, P = 32, 10
     scratch = P - 1
@@ -163,6 +172,10 @@ def test_lm_decode_paged_matches_jax(model):
 
 
 def test_lm_prefill_paged_matches_jax(model):
+    check_lm_prefill_paged(model)
+
+
+def check_lm_prefill_paged(model):
     """Chunked prefill, a physically shared prefix and a ragged final chunk
     (the construction of ``test_lm_prefill_paged_bitwise_matches_gather``):
     logits of real lanes and non-scratch pages agree after every chunk."""
@@ -208,6 +221,10 @@ def test_lm_prefill_paged_matches_jax(model):
 
 
 def test_lm_mixed_paged_matches_jax(model):
+    check_lm_mixed_paged(model)
+
+
+def check_lm_mixed_paged(model):
     """Two prefill packs (one a slack pack on the scratch page) and three
     decode lanes (one idle) in one mixed iteration."""
     cfg, jcfg, jparams, tparams = model
@@ -246,7 +263,11 @@ def test_lm_mixed_paged_matches_jax(model):
 # ---------------------------------------------------------------------------
 
 def test_lm_forward_and_prefill_match_jax(dense_model):
-    cfg, jcfg, jparams, tparams = dense_model
+    check_lm_forward_and_prefill(dense_model)
+
+
+def check_lm_forward_and_prefill(model):
+    cfg, jcfg, jparams, tparams = model
     if cfg.sliding_window is not None:
         assert cfg.post_sublayer_norm and cfg.tie_embeddings
         assert "lm_head" not in tparams
@@ -281,11 +302,15 @@ def _assert_dense(jc, tc, Smax):
 
 
 def test_lm_step_chunked_prefill_matches_jax(dense_model):
+    check_lm_step_chunked_prefill(dense_model)
+
+
+def check_lm_step_chunked_prefill(model):
     """One sequence in chunks as the dense layout runs them: a full
     chunk, then ragged chunks whose padded lanes park at ``Smax - 1``, the
     last one past gemma2's 64-token window and running past the cache's
     end (start + bucket > Smax)."""
-    cfg, jcfg, jparams, tparams = dense_model
+    cfg, jcfg, jparams, tparams = model
     Smax = 160
     jc, tc = _dense_caches(cfg, 1, Smax, 6)
     rng = np.random.default_rng(7)
@@ -306,9 +331,13 @@ def test_lm_step_chunked_prefill_matches_jax(dense_model):
 
 
 def test_lm_decode_matches_jax(dense_model):
+    check_lm_decode(dense_model)
+
+
+def check_lm_decode(model):
     """Every slot steps at its own position (one past gemma2's window,
     one short, one parked at the scratch position as an idle lane)."""
-    cfg, jcfg, jparams, tparams = dense_model
+    cfg, jcfg, jparams, tparams = model
     Smax = 128
     jc, tc = _dense_caches(cfg, 3, Smax, 8)
     toks = np.array([11, 23, 0], np.int32)
@@ -380,9 +409,18 @@ def test_dense_attention_matches_jax():
 
 
 def test_moe_family_is_not_ported():
+    """The MoE family is served now: ``init_lm`` draws its router and
+    stacked experts (the parity tests are in tests/test_torch_moe.py);
+    a family that is no transformer LM is refused."""
     cfg = get_config("granite-moe-3b-a800m").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
+    p = ttf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
+    m = cfg.moe
+    assert "mlp" not in p["layers"]
+    assert p["layers"]["moe"]["w_down"].shape == (
+        cfg.n_layers, m.num_experts, m.d_ff_expert, cfg.d_model)
+    with pytest.raises(ValueError, match="not a transformer"):
+        ttf.init_lm(get_config("rwkv6-1.6b").reduced(),
+                    torch.Generator().manual_seed(0), torch.float32)
 
 
 def test_init_lm_shapes_match_jax(model):

@@ -8,7 +8,10 @@ dense slot layout (sliding window and softcaps: both backends choose it).
 Each scenario is one of the live scenarios of
 ``tests/test_paged_runner.py`` / ``tests/test_continuous_batching.py``,
 built with the reference's engine for the JAX backend and with the port's
-own copy of the engine for the port.
+own copy of the engine for the port. The paged scenarios run again on
+``granite-moe-3b-a800m`` (the MoE family on the paged path), and the
+OpenAI-style ``ServingAPI`` drives both backends as
+``tests/test_engine_properties.py`` drives the JAX one.
 """
 import jax
 import numpy as np
@@ -20,6 +23,7 @@ from repro.core.events import EventBus as JEventBus
 from repro.core.policies import KVAction as JKVAction
 from repro.core.session import Round as JRound
 from repro.core.session import make_session as jmake_session
+from repro.engine import api as japi
 from repro.engine import engine as jengine
 from repro.engine.jax_runner import JaxBackend
 from repro.engine.tools import RealToolExecutor as JRealToolExecutor
@@ -28,12 +32,14 @@ from repro_torch.core import events as tev
 from repro_torch.core.events import EventBus
 from repro_torch.core.policies import KVAction
 from repro_torch.core.session import Round, make_session
+from repro_torch.engine import api as tapi
 from repro_torch.engine import engine as tengine
 from repro_torch.engine.tools import RealToolExecutor
 from repro_torch.engine.torch_runner import TorchBackend
 from repro_torch.models.convert import params_from_numpy
 
 ARCH = "llama3.2-1b"
+MOE_ARCH = "granite-moe-3b-a800m"
 
 
 def _jax_params(arch):
@@ -52,10 +58,10 @@ def jax_backend_params():
 
 # the two engines' vocabularies, so one scenario builder serves both
 _JAX = dict(Round=JRound, make_session=jmake_session, EventBus=JEventBus,
-            KVAction=JKVAction, engine=jengine,
+            KVAction=JKVAction, engine=jengine, api=japi,
             Tools=JRealToolExecutor)
 _TORCH = dict(Round=Round, make_session=make_session, EventBus=EventBus,
-              KVAction=KVAction, engine=tengine,
+              KVAction=KVAction, engine=tengine, api=tapi,
               Tools=RealToolExecutor)
 
 
@@ -233,10 +239,17 @@ def test_torch_backend_needs_a_card_unless_cpu(monkeypatch):
 
 
 def test_unported_layouts_raise():
-    """The MoE family is not ported yet; an unknown layout is refused."""
+    """The MoE family is served, on the paged layout as JaxBackend serves
+    it; a family that is no LM and an unknown layout are refused."""
+    b = TorchBackend(get_config(MOE_ARCH).reduced(), device="cpu",
+                     dtype=torch.float32, max_slots=1, max_len=64)
+    try:
+        assert b.layout == "paged" and b.supports_prefix_sharing
+        assert "moe" in b.params["layers"]
+    finally:
+        b.close()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBackend(get_config("granite-moe-3b-a800m").reduced(),
-                     device="cpu")
+        TorchBackend(get_config("rwkv6-1.6b").reduced(), device="cpu")
     with pytest.raises(ValueError, match="layout"):
         TorchBackend(get_config(ARCH).reduced(), layout="slab",
                      device="cpu")
@@ -317,3 +330,119 @@ def test_serve_live_gemma2_takes_the_dense_layout(monkeypatch):
     assert [b.layout for b in built] == ["dense"]
     assert len(finished) == 1
     assert len(finished[0].meta["generated"]) == 12 + 8 + 8
+
+
+def test_serve_live_moe_takes_the_paged_layout(monkeypatch):
+    """``serve_live(arch="granite-moe-3b-a800m")`` serves the MoE family
+    on the paged layout (here the reduced config on the CPU)."""
+    from repro_torch.launch import serve
+    built = []
+    orig = TorchBackend.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        built.append(self)
+    monkeypatch.setattr(TorchBackend, "__init__", spy)
+    finished = serve.serve_live(arch=MOE_ARCH, policy="mars", n_sessions=1,
+                                device="cpu", verbose=False)
+    assert [b.layout for b in built] == ["paged"]
+    assert [b.cfg.family for b in built] == ["moe"]
+    assert len(finished) == 1
+    assert len(finished[0].meta["generated"]) == 12 + 8 + 8
+
+
+# ---------------------------------------------------------------------------
+# the MoE family on the paged path, and the ServingAPI front end
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def moe_backend_params():
+    return _jax_params(MOE_ARCH)
+
+
+MOE_SCENARIOS = {
+    "shared_family": dict(build=lambda m: _family(m, [93101, 93102, 93103])),
+    "forced_offload": dict(build=lambda m: _family(m, [93201, 93202],
+                                                   rounds=2),
+                           offload="OFFLOAD", tools=True),
+    "cow_tail": dict(build=lambda m: _duplicates(m, [93301, 93302])),
+}
+
+
+@pytest.mark.live
+@pytest.mark.parametrize("scenario", sorted(MOE_SCENARIOS))
+def test_moe_tokens_match_jax(moe_backend_params, scenario):
+    """The shared-family, forced-offload and CoW-tail scenarios above on
+    ``granite-moe-3b-a800m``: every layer's FFN is the capacity-dispatched
+    MoE over each pack's and each decode batch's own padded tokens, and the
+    port emits exactly the JAX backend's greedy tokens."""
+    kw = dict(MOE_SCENARIOS[scenario])
+    build = kw.pop("build")
+    jtok, ttok, eng = _both(moe_backend_params, build, arch=MOE_ARCH, **kw)
+    assert ttok == jtok and len(ttok) >= 2
+    assert eng.backend.layout == "paged"
+    assert eng.backend.dispatch_stats["mixed_calls"] > 0
+    if scenario == "shared_family":
+        assert eng.prefix_hit_tokens >= 2 * 96
+    elif scenario == "forced_offload":
+        assert any(e.kind == tev.SWAP_OUT and e.data.get("tier") == "host"
+                   for e in eng.bus.log)
+        assert eng.backend.swap_stream_stats()["h2d_completed"] > 0
+    else:
+        assert eng.blocks.cow_count >= 1
+
+
+def _api_run(m, backend):
+    """Two rounds of one job through ``ServingAPI`` under MARS with a real
+    tool in between, as ``test_serving_api_session_continuity`` runs them.
+    Returns (results of both futures, tool effects, engine, whether the
+    job's second round resumed warm)."""
+    bus = m["EventBus"]()
+    tools = m["Tools"](cpu_slots=1, bus=bus)
+    eng = m["engine"].Engine(
+        m["engine"].EngineConfig(total_kv_blocks=2 * 255 // 32,
+                                 token_budget=128, max_decode_batch=2,
+                                 decode_granularity=4, cpu_slots=1),
+        "mars", backend, bus=bus, tool_exec=tools)
+    api = m["api"].ServingAPI(eng)
+    Req = m["api"].ChatRequest
+    effects = []
+    f1 = api.submit(Req(job_id="job-A", prompt_tokens=list(range(2, 50)),
+                        max_tokens=8,
+                        tool_call={"kind": "t",
+                                   "fn": lambda: effects.append(1)}))
+    f2 = api.submit(Req(job_id="job-A", prompt_tokens=list(range(2, 20)),
+                        max_tokens=8, final=True))
+    session = api._jobs["job-A"]
+    try:
+        m["engine"].run_live(eng, [], timeout=90)
+    finally:
+        tools.shutdown()
+        backend.close()
+    results = [f1.result(timeout=5), f2.result(timeout=5)]
+    assert session.phase.value == "finished" and api.active_jobs() == []
+    warm = any(e.kind == "unpin" and e.sid == session.sid
+               and e.data.get("warm") for e in bus.log)
+    return results, effects, eng, warm
+
+
+@pytest.mark.live
+@pytest.mark.parametrize("arch", [ARCH, MOE_ARCH])
+def test_serving_api_tokens_match_jax(arch):
+    """``ServingAPI`` over ``TorchBackend(device="cpu")`` and over
+    ``JaxBackend``: one ``job_id`` spans both rounds, the tool runs once,
+    the second round resumes warm (its KV pinned through the tool call)
+    and both backends resolve the futures with the same greedy tokens."""
+    params = _jax_params(arch)
+    jb = JaxBackend(jget_config(arch).reduced(), max_slots=2, max_len=256)
+    want, jeff, _, jwarm = _api_run(_JAX, jb)
+    tb = TorchBackend(get_config(arch).reduced(), max_slots=2, max_len=256,
+                      device="cpu", dtype=torch.float32,
+                      params=params_from_numpy(params, dtype=torch.float32))
+    got, teff, _, twarm = _api_run(_TORCH, tb)
+    assert teff == jeff == [1]
+    assert [r["round"] for r in got] == [0, 1]
+    assert all(r["job_id"] == "job-A" for r in got)
+    assert all(len(r["tokens"]) == 8 and r["ttft"] is not None for r in got)
+    assert [r["tokens"] for r in got] == [r["tokens"] for r in want]
+    assert twarm and jwarm

@@ -88,6 +88,30 @@ Phases, in order; any failure exits non-zero:
 11. profile     device time by kernel over one full-width dense prefill
                 chunk (C = 512 at q_offset 4,096) and one dense decode step
                 over 4 slots
+12. train       the training path, after the card is freed, f32: one
+                train loss and its gradient (remat; chunked CE on the LM
+                families) of llama3.2-1b, gemma2-27b (S 128: window and
+                softcap), granite-moe-3b-a800m and rwkv6-1.6b .reduced(),
+                card (kernels forward, their autograd Functions' plain
+                backward) against the CPU on the same weights and batch:
+                loss within 1e-5 relative, every gradient leaf within 2e-5
+                of its largest |CPU gradient| (rwkv6: 2e-4), the wq/wk/wv
+                (rwkv6: r/k/v and decay) gradients nonzero, the kernel
+                launched in the step; the grad guard (flash_attention
+                attaches to autograd, paged_attention refuses); then
+                launch.train.train on the card, each step's wall, tokens/s
+                and peak memory logged: full-width llama3.2-1b, B 8 x
+                S 1,024, 10 steps, remat and chunked CE (the mean loss of
+                the last 3 steps below the first 3's), full-width
+                rwkv6-1.6b (B 4 x T 512, 3 steps, wkv6 launched), one
+                full-width bf16 llama step (matmul_f32's Function), and a
+                reduced llama run of 8 steps against 4 + 4 resumed from its
+                checkpoint under build/, loss for loss equal. After each
+                full-width run, each kernel it launched is held against its
+                plain version at the run's first call (layer 0 of the first
+                batch): the output and the autograd Function's input
+                gradients for a random cotangent. Its launches are logged
+                apart
 
 The MoE family (qwen3-coder-30b-a3b, the paper's model, and
 granite-moe-3b-a800m) adds, in run order:
@@ -124,11 +148,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -150,12 +176,16 @@ from repro_torch.engine.engine import Engine, EngineConfig, run_live  # noqa: E4
 from repro_torch.engine.tools import RealToolExecutor  # noqa: E402
 from repro_torch.engine.torch_runner import TorchBackend  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    _FlashAttention, flash_attention)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     _split_plan, paged_attention, paged_attention_fused)
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention  # noqa: E402
-from repro_torch.kernels.wkv6 import wkv6  # noqa: E402
+from repro_torch.kernels.wkv6 import _WKV6, wkv6  # noqa: E402
+from repro_torch.distributed import steps as train_steps  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.train.optimizer import init_opt  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -2550,9 +2580,11 @@ def _rank_scan_layouts(m, T: int) -> None:
 
 
 def _profile(label: str, fn, traced: int = 3, focus: str = "", labels=(),
-             traced_ctx=contextlib.nullcontext, kernels=None):
-    """Wall time per call with the profiler off (5 calls after 2 warm-up
-    calls) and device time by kernel over ``traced`` profiled calls (run
+             traced_ctx=contextlib.nullcontext, kernels=None, timed: int = 5,
+             warm: int = 2):
+    """Wall time per call with the profiler off (``timed`` calls after
+    ``warm`` warm-up calls) and device time by kernel over ``traced``
+    profiled calls (run
     inside ``traced_ctx()``); logs the idle share, the top kernels and the
     device-time share of the kernels whose name holds ``focus``. Returns
     (wall_ms, device_ms, focus_ms, parts), all per call; ``parts`` maps
@@ -2560,14 +2592,14 @@ def _profile(label: str, fn, traced: int = 3, focus: str = "", labels=(),
     launched inside it, and each value of ``kernels`` ({name substring:
     part}) to the device time of the kernels whose name holds the key."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    for _ in range(5):
+    for _ in range(timed):
         fn()
     torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - t0) * 1e3 / 5     # profiler off
+    wall_ms = (time.monotonic() - t0) * 1e3 / timed     # profiler off
     with traced_ctx(), profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA]) as prof:
         for _ in range(traced):
@@ -2667,6 +2699,346 @@ def phase_profile_dense(backend) -> None:
         f" ms, global {per_kind[False]:.4f} ms per layer; x{cfg.n_layers} "
         f"layers = {attn_ms:.3f} ms of a {wall:.3f} ms step "
         f"(share {attn_ms / wall:.3f})")
+
+
+# ---------------------------------------------------------------------------
+# 12. train: gradients through the kernels, the trainer at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_PARITY = (("llama3.2-1b", 64), ("gemma2-27b", 128),
+                ("granite-moe-3b-a800m", 64), ("rwkv6-1.6b", 64))
+# card vs CPU, x each leaf's largest |CPU gradient|: about 9x the worst
+# leaf read on the H100 (PERF.md: 2.14e-6 on the LM families, 2.27e-5 on
+# rwkv6, whose random-init backward grows the gradient ~200x)
+GRAD_REL_TOL = {"rwkv6": 2e-4}
+GRAD_TOL = 2e-5
+# the leaves that reach the loss only through the kernel's output
+KERNEL_LEAVES = {"lm": ("layers.attn.wq", "layers.attn.wk", "layers.attn.wv"),
+                 "rwkv6": ("layers.wr", "layers.wk", "layers.wv",
+                           "layers.decay_A", "layers.decay_B",
+                           "layers.w_base", "layers.u")}
+TRAIN_FULL = dict(arch="llama3.2-1b", reduced=False, steps=10, seq_len=1024,
+                  batch=8)
+TRAIN_RWKV = dict(arch="rwkv6-1.6b", reduced=False, steps=3, seq_len=512,
+                  batch=4)
+TRAIN_BF16 = dict(arch="llama3.2-1b", reduced=False, steps=1, seq_len=1024,
+                  batch=8)
+TRAIN_RESTART = dict(arch="llama3.2-1b", steps=8, seq_len=64, batch=4)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _launches(name):
+    return KERNELS[name]["fn"].launches
+
+
+def _train_parity(arch: str, S: int) -> dict:
+    """One train loss and its gradient, ``.reduced()`` in float32 with
+    remat (and chunked CE on the LM families), on the same weights and
+    batch: card (kernels forward, their Functions' backward) against the
+    CPU (plain versions). Loss within 1e-5 relative; every leaf within
+    GRAD_TOL of its largest |CPU gradient| (GRAD_REL_TOL for rwkv6); the
+    leaves that reach the loss only through the kernel nonzero on the card
+    and matching; the kernel launched during the step."""
+    cfg = get_config(arch).reduced()
+    family = "rwkv6" if cfg.family == "rwkv6" else "lm"
+    kernel = "wkv6" if family == "rwkv6" else "flash_attention"
+    params = model_zoo.init(cfg, 0, torch.float32, device="cpu")
+    dparams = _to_device(params)
+    rng = np.random.default_rng(11)
+    batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, S))
+                                 .astype(np.int32))
+             for k in ("tokens", "targets")}
+    kw = dict(remat=True, chunked_ce=family == "lm")
+    lc, gc_ = train_steps.loss_and_grads(cfg, params, batch, **kw)
+    before = _launches(kernel)
+    lg, gg = train_steps.loss_and_grads(
+        cfg, dparams, {k: v.to(DEV) for k, v in batch.items()}, **kw)
+    launched = _launches(kernel) - before
+    tol = GRAD_REL_TOL.get(cfg.family, GRAD_TOL)
+    if not abs(lg.item() - lc.item()) <= 1e-5 * abs(lc.item()):
+        raise AssertionError(f"train {arch}: loss {lg.item()} on the card, "
+                             f"{lc.item()} on the cpu")
+    worst, n = 0.0, 0
+    grads_dev = dict(_named_leaves(gg))
+    for name, want in _named_leaves(gc_):
+        got = grads_dev[name].float().cpu()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        n += 1
+        if not err <= tol * scale:
+            raise AssertionError(f"train {arch} grad {name}: max abs err "
+                                 f"{err} > {tol} x {scale}")
+        if name in KERNEL_LEAVES[family] and not got.abs().max() > 0:
+            raise AssertionError(f"train {arch}: {name}'s gradient is zero "
+                                 f"on the card: the {kernel} output was "
+                                 "detached")
+    if launched < 2 * cfg.n_layers:          # forward + remat recompute
+        raise AssertionError(f"train {arch}: {kernel} launched {launched} "
+                             f"times in the step")
+    log(f"[train] {arch} reduced f32 S={S}: loss card {lg.item():.6f} cpu "
+        f"{lc.item():.6f}; {n} gradient leaves, worst err {worst:.2e} of the "
+        f"leaf's largest |cpu gradient| (tol {tol}); "
+        f"{', '.join(KERNEL_LEAVES[family])} nonzero; {kernel} launched "
+        f"{launched} times")
+    return {arch: launched}
+
+
+def _guard_check() -> None:
+    """On a CUDA tensor that requires grad, the flash wrapper returns a
+    result attached to autograd and a serving-only wrapper raises."""
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    q = _randn(gen, (1, 4, 64, 64), torch.float32).requires_grad_(True)
+    k, v = (_randn(gen, (1, 2, 64, 64), torch.float32) for _ in range(2))
+    if flash_attention(q, k, v).grad_fn is None:
+        raise AssertionError("flash_attention returned a detached result")
+    qd = _randn(gen, (2, 4, 64), torch.float32).requires_grad_(True)
+    pages = _randn(gen, (4, 16, 2, 64), torch.float32)
+    table = torch.zeros((2, 2), dtype=torch.int32, device=DEV)
+    lens = torch.full((2,), 8, dtype=torch.int32, device=DEV)
+    try:
+        paged_attention(qd, pages, pages, table, lens)
+    except RuntimeError as e:
+        if "detached" not in str(e):
+            raise
+    else:
+        raise AssertionError("paged_attention took a grad-requiring input")
+    log("[train] grad guard: flash_attention attaches to autograd; "
+        "paged_attention refuses a grad-requiring input")
+
+
+TRAIN_FUNCTIONS = {"flash_attention": _FlashAttention, "wkv6": _WKV6}
+
+
+@contextlib.contextmanager
+def _first_calls():
+    """Detached copies of the arguments of each training kernel's first
+    call through its autograd Function while the block runs (layer 0 of
+    the first batch), by kernel name."""
+    first = {}
+
+    def spy(name, orig):
+        def apply(*args):
+            if name not in first:
+                first[name] = tuple(a.detach().clone() if torch.is_tensor(a)
+                                    else a for a in args)
+            return orig(*args)
+        return apply
+    for name, fn in TRAIN_FUNCTIONS.items():
+        fn.apply = spy(name, fn.apply)
+    try:
+        yield first
+    finally:
+        for fn in TRAIN_FUNCTIONS.values():
+            del fn.apply                 # back to Function.apply
+
+
+def _hold_train_kernel(label: str, name: str, args) -> None:
+    """A training kernel against its plain version at the inputs a run
+    gave it: the wrapper's output (kernel forward) against
+    ``flash_attention_ref`` / ``wkv6_chunked``, and its Function's input
+    gradients for a random cotangent against autograd's gradient of the
+    plain version. Tolerance: ``_attn_tol`` for flash (f32 2e-5 absolute;
+    bf16 2e-2 of the tensor's scale, capped); for wkv6 1e-5 of each
+    tensor's largest magnitude (WKV_REL_TOL, the main-path check's own:
+    outputs and gradients reach the hundreds). Logs every error beside its
+    tolerance; raises after logging if any is past it."""
+    if name == "flash_attention":
+        tensors, (causal, window, softcap, q_offset) = args[:3], args[3:]
+        opts = dict(causal=causal, window=window, softcap=softcap,
+                    q_offset=q_offset)
+        kernel = functools.partial(flash_attention, **opts)
+        plain = functools.partial(ref.flash_attention_ref, **opts)
+        parts = ("o", "dq", "dk", "dv")
+    else:
+        tensors, chunk = args[:6], args[6]
+        kernel = functools.partial(wkv6, chunk=chunk)
+        plain = functools.partial(ref.wkv6_chunked, chunk=chunk)
+        parts = ("o", "state", "dr", "dk", "dv", "dw", "du", "dstate")
+    a = [t.clone().requires_grad_(True) for t in tensors]
+    b = [t.clone().requires_grad_(True) for t in tensors]
+    before = _launches(name)
+    got, want = kernel(*a), plain(*b)
+    if _launches(name) != before + 1:
+        raise AssertionError(f"train {label}: the {name} wrapper did not "
+                             "launch its kernel once")
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    cot = [_randn(gen, w.shape, w.dtype) for w in want]
+    got_g = torch.autograd.grad(got, a, cot)
+    want_g = torch.autograd.grad(want, b, cot)
+    dtype = tensors[0].dtype
+    shapes = " ".join("x".join(map(str, t.shape)) for t in tensors)
+    report, bad = [], []
+    for part, g, w in zip(parts, (*got, *got_g), (*want, *want_g)):
+        if name == "flash_attention":
+            tol = _attn_tol(dtype, w)
+        else:
+            tol = WKV_REL_TOL * w.float().abs().max().item()
+        finite = bool(torch.isfinite(g.float()).all())
+        err = (g.float() - w.float()).abs().max().item()
+        report.append(f"{part} {err:.3e} (tol {tol:.3e})")
+        if not (finite and err <= tol):
+            bad.append(part)
+    log(f"[train] {label}: {name} {str(dtype)[6:]} at the run's first "
+        f"call ({shapes}) vs its plain version, max abs err: "
+        + ", ".join(report))
+    if bad:
+        raise AssertionError(f"train {label}: {name} {bad} past tolerance "
+                             "or not finite")
+
+
+def _train_run(label: str, dtype=torch.float32, remat=True, chunked_ce=True,
+               **run):
+    """``launch.train.train`` on the card, its per-step lines logged
+    (wall to the loss read back, tokens/s, peak memory), then each kernel
+    the run launched held against its plain version at the run's first
+    call (``_hold_train_kernel``, after the launches are counted); returns
+    the losses, the kernel launches and the trained params."""
+    counts = {n: _launches(n) for n in ("flash_attention", "wkv6")}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with _first_calls() as first:
+        losses, params = train(**run, dtype=dtype, remat=remat,
+                               chunked_ce=chunked_ce, log_every=1,
+                               device="cuda")
+    dt = time.monotonic() - t0
+    launched = {n: _launches(n) - c for n, c in counts.items()}
+    bad = [x for x in losses if not np.isfinite(x)]
+    if bad or not losses:
+        raise AssertionError(f"train {label}: losses {losses}")
+    log(f"[train] {label}: {len(losses)} steps in {dt:.2f}s (init "
+        f"included); losses {[round(x, 4) for x in losses]}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; kernel "
+        f"launches {launched}")
+    for name, args in first.items():
+        _hold_train_kernel(label, name, args)
+    if set(first) != {n for n, c in launched.items() if c}:
+        raise AssertionError(f"train {label}: kernels {launched} launched, "
+                             f"first calls seen {sorted(first)}")
+    return losses, launched, params
+
+
+TRAIN_RANGES = ("plain backward (flash_attention)", "adamw_update")
+
+
+@contextlib.contextmanager
+def _train_ranges():
+    """Profiler ranges around the flash Function's plain backward and the
+    optimizer update; restored on exit."""
+    from torch.profiler import record_function
+    from repro_torch.kernels import _grad
+    orig_bwd, orig_opt = _grad.plain_backward, train_steps.adamw_update
+
+    def bwd(*a, **k):
+        with record_function(TRAIN_RANGES[0]):
+            return orig_bwd(*a, **k)
+
+    def opt(*a, **k):
+        with record_function(TRAIN_RANGES[1]):
+            return orig_opt(*a, **k)
+    _grad.plain_backward, train_steps.adamw_update = bwd, opt
+    try:
+        yield
+    finally:
+        _grad.plain_backward, train_steps.adamw_update = orig_bwd, orig_opt
+
+
+def _profile_train(params) -> None:
+    """One more full-width llama train step on the trained weights, timed
+    with the profiler off, then one traced: device time, idle share, the
+    flash kernel, the plain backward's recompute, the optimizer."""
+    cfg = get_config(TRAIN_FULL["arch"])
+    if TRAIN_FULL["reduced"]:
+        cfg = cfg.reduced()
+    B, S = TRAIN_FULL["batch"], TRAIN_FULL["seq_len"]
+    step = train_steps.build_train_step(cfg, remat=True, chunked_ce=True)
+    state = [init_opt(params)]
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    batch = {k: torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                              device=DEV, dtype=torch.int32)
+             for k in ("tokens", "targets")}
+
+    def one():
+        _, state[0], m = step(params, state[0], batch)
+        m["loss"].item()
+    _, total, flash, parts = _profile(
+        f"llama3.2-1b full-width f32 train step B={B} S={S} (remat, "
+        f"chunked CE)", one, traced=1, timed=1, warm=0, focus="flash",
+        labels=TRAIN_RANGES, traced_ctx=_train_ranges)
+    log(f"[profile] train step: flash_attention kernel {flash:.3f} ms, "
+        + ", ".join(f"{k} {v:.3f} ms ({v / total:.3f} of device time)"
+                    for k, v in parts.items()))
+
+
+def phase_train() -> dict:
+    """Gradients through the kernels (card vs CPU on four reduced
+    families), the grad guard, then the trainer on the card: full-width
+    llama3.2-1b (f32, remat, chunked CE) whose loss must fall, full-width
+    rwkv6-1.6b, one full-width bf16 llama step (each kernel of each
+    full-width run held against its plain version at the run's first
+    call, output and gradients), and a reduced llama run stopped halfway
+    and resumed from its checkpoint, loss for loss equal to the
+    uninterrupted run."""
+    launches = {}
+    for arch, S in TRAIN_PARITY:
+        launches.update(_train_parity(arch, S))
+    _guard_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, launched, params = _train_run(
+        f"llama3.2-1b full width f32 B={TRAIN_FULL['batch']} "
+        f"S={TRAIN_FULL['seq_len']}", **TRAIN_FULL)
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    if not last < first or launched["flash_attention"] <= 0:
+        raise AssertionError(f"train llama full width: loss {first} -> "
+                             f"{last}, flash launches {launched}")
+    log(f"[train] llama full width: mean loss of the first 3 steps "
+        f"{first:.4f}, of the last 3 {last:.4f}")
+    launches["llama3.2-1b full width"] = launched["flash_attention"]
+    _profile_train(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = _train_run(f"rwkv6-1.6b full width f32 B="
+                          f"{TRAIN_RWKV['batch']} S="
+                          f"{TRAIN_RWKV['seq_len']}", chunked_ce=False,
+                          **TRAIN_RWKV)[1]
+    if launched["wkv6"] <= 0:
+        raise AssertionError("train rwkv6: wkv6 never launched")
+    launches["rwkv6-1.6b full width"] = launched["wkv6"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = _train_run("llama3.2-1b full width bf16, one step",
+                          dtype=torch.bfloat16, **TRAIN_BF16)[1]
+    if launched["flash_attention"] <= 0:
+        raise AssertionError("train bf16: flash_attention never launched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        n = TRAIN_RESTART["steps"]
+        run = dict(TRAIN_RESTART, reduced=True, verbose=False, device="cuda")
+        full, _ = train(**run)
+        part, _ = train(**run, stop_after=n // 2, ckpt_dir=d,
+                        ckpt_every=n // 2)
+        resumed, _ = train(**run, ckpt_dir=d, resume=True, ckpt_every=100)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if part != full[:n // 2] or resumed != full[n // 2:]:
+        raise AssertionError(f"train restart: {full} vs {part} + {resumed}")
+    log(f"[train] restart: {n} steps equal {n // 2} + {n // 2} resumed from "
+        f"the checkpoint, loss for loss ({full[-1]:.6f} at the end)")
+    return launches
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2773,6 +3145,14 @@ def main() -> int:
     finally:
         backend.close()
     log(f"[profile-dense] done in {time.monotonic() - t0:.2f}s")
+    del backend                      # free the card for training
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    train_launches = phase_train()
+    log(f"[train] launches (logged apart; the kernels JSON keeps the serve "
+        f"phases'): {train_launches}")
+    log(f"[train] done in {time.monotonic() - t0:.2f}s")
     flash_row["launches"] = dense_launches["flash_attention"]
     wkv_row["launches"] = rwkv_launches["wkv6"]
     rows += [flash_row, wkv_row]

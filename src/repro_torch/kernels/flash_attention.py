@@ -36,6 +36,13 @@ times against the bound.
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); on a CUDA tensor it
 launches the kernel or raises. ``.launches`` counts launches.
+
+Gradient: where grad mode is on and q, k or v requires grad, the call on
+the card goes through :class:`_FlashAttention`, whose forward is the
+kernel and whose backward recomputes ``flash_attention_ref`` and returns
+autograd's gradient of it (``_grad.plain_backward``): the gradient XLA
+takes of the JAX package's jnp attention. A direct launch with such an
+input raises (``_grad.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,6 +124,34 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     q_offset = int(q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap,
+                                     q_offset)
+    return _launch(q, k, v, causal, window, softcap, q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_offset=q_offset)
+        return _launch(q, k, v, causal, window, softcap, q_offset)
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _grad.plain_backward(
+            flash_attention_ref, ctx.saved_tensors, ctx.needs_input_grad[:3],
+            (do,), **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def _launch(q, k, v, causal, window, softcap, q_offset: int):
+    """One kernel launch on CUDA tensors; raises on grad-requiring
+    inputs under grad mode (the Function's forward runs without it)."""
+    _grad.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window, softcap, q_offset)
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape

@@ -27,7 +27,9 @@ raise. Each wrapper counts its launches in ``.launches``, one per call (a
 call runs the split kernel and its combine). Block-table and slot indices
 are trusted (they come from the engine's binding map); shapes, dtypes,
 devices, contiguity and the 16-byte alignment of q, the pools and the new
-KV are checked.
+KV are checked. The kernels have no gradient (no training path runs
+them): on the card, an input that requires grad under grad mode raises
+(``_grad.refuse_grad``) rather than come back detached.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.ref import paged_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,6 +168,8 @@ def paged_attention_fused(q, k_pages, v_pages, block_table, lengths, k_new,
         return o, k_pages, v_pages
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_fused: no kernel for {q.device}")
+    _grad.refuse_grad("paged_attention_fused", q, k_pages, v_pages, k_new,
+                      v_new)
     _check(q, k_pages, v_pages, block_table, lengths, k_new, v_new,
            write_pages, write_offsets)
     if q.shape[0] == 0:
@@ -187,6 +191,7 @@ def paged_attention(q, k_pages, v_pages, block_table, lengths):
         return paged_attention_ref(q, k_pages, v_pages, block_table, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
+    _grad.refuse_grad("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, block_table, lengths)
     if q.shape[0] == 0:
         return torch.empty_like(q)

@@ -32,7 +32,9 @@ On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.paged_flash_attention_ref`); on a CUDA
 tensor it launches the kernel or raises. ``.launches`` counts launches.
 Block-table indices are trusted; shapes, dtypes, devices and contiguity
-are checked.
+are checked. The kernel has no gradient (no training path runs it): on
+the card, an input that requires grad under grad mode raises
+(``_grad.refuse_grad``) rather than come back detached.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.ref import paged_flash_attention_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -110,6 +112,7 @@ def paged_flash_attention(q, k_pages, v_pages, block_table, kv_len,
                                          kv_len, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_attention: no kernel for {q.device}")
+    _grad.refuse_grad("paged_flash_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, block_table, kv_len, q_offset)
     B, Hq, Sq, D = q.shape
     _, page, Hkv, _ = k_pages.shape

@@ -6,7 +6,9 @@ the WKV6 recurrence step by step in f32) and are the ground truth the
 Hopper kernels are held against: the CPU
 tests compare them with the JAX oracles, and ``chip_smoke.py`` compares
 each kernel with them on the card. On a CPU tensor the kernel wrappers
-call these directly.
+call these directly. ``wkv6_chunked`` is the JAX model's chunked form of
+the recurrence: the ``wkv6`` kernel's backward recomputes it, since the
+step-by-step ``wkv6_ref`` is too slow at training lengths.
 """
 from __future__ import annotations
 
@@ -128,4 +130,46 @@ def wkv6_ref(r, k, v, w, u, state):
         S = wt[..., None] * S + torch.einsum("bhk,bhv->bhkv", kt, vt)
         outs.append(o)
     o = torch.stack(outs, dim=1) if outs else rf.new_zeros(r.shape)
+    return o, S
+
+
+def wkv6_chunked(r, k, v, w, u, state, chunk: int = 32):
+    """r,k,v,w: (B, T, H, K) [w in (0,1)]; u: (H, K); state: (B, H, K, K)
+    f32. Returns (o (B,T,H,K) f32, new state). T must be a multiple of
+    ``chunk``.
+
+    The chunked form of the JAX model, op for op: the intra-chunk term
+    factors exp(cum_{t-1} - cum_i) into two factors, each centred by half
+    the chunk's total log-decay, and the masked triangle is zeroed with
+    ``where`` (an inf times 0 would give NaN)."""
+    B, T, H, K = r.shape
+    if T % chunk:
+        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
+    n_chunks = T // chunk
+    shp = (B, n_chunks, chunk, H, K)
+    rs, ks_, vs = (a.to(F32).reshape(shp) for a in (r, k, v))
+    lw = torch.log(torch.clamp(w.to(F32), 1e-12, 1.0)).reshape(shp)
+    uf = u.to(F32)
+    S = state.to(F32)
+    ti = torch.arange(chunk, device=r.device)
+    tri = ti[None, :] < ti[:, None]              # strictly lower triangular
+    outs = []
+    for c in range(n_chunks):
+        rc, kc, vc, lwc = rs[:, c], ks_[:, c], vs[:, c], lw[:, c]
+        cum = torch.cumsum(lwc, dim=1)           # inclusive decay logs
+        r_dec = rc * torch.exp(cum - lwc)        # decay excludes current step
+        o_inter = torch.einsum("bchk,bhkv->bchv", r_dec, S)
+        half = 0.5 * cum[:, -1:]                 # centring offset (B,1,H,K)
+        q_ = rc * torch.exp(cum - lwc - half)
+        k_ = kc * torch.exp(half - cum)
+        att = torch.einsum("bchk,bihk->bhci", q_, k_)
+        att = torch.where(tri[None, None], att, torch.zeros_like(att))
+        o_intra = torch.einsum("bhci,bihv->bchv", att, vc)
+        bonus = torch.einsum("bchk,bchk->bch", rc, uf[None, None] * kc)
+        outs.append(o_inter + o_intra + bonus[..., None] * vc)
+        total = cum[:, -1]                       # (B, H, K)
+        k_dec = kc * torch.exp(total[:, None] - cum)
+        S = torch.exp(total)[..., None] * S + \
+            torch.einsum("bchk,bchv->bhkv", k_dec, vc)
+    o = torch.stack(outs, dim=1).reshape(B, T, H, K)
     return o, S

@@ -37,6 +37,17 @@ against the bound.
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.wkv6_ref`); on a CUDA tensor it launches
 the kernel or raises. ``.launches`` counts launches.
+
+Gradient: where grad mode is on and an input requires grad, the call on
+the card goes through :class:`_WKV6`, whose forward is the kernel and
+whose backward recomputes the chunked plain form
+(:func:`repro_torch.kernels.ref.wkv6_chunked`, chunk ``min(chunk, T)``;
+the step-by-step ``wkv6_ref`` loops over T) and returns autograd's
+gradient of both outputs, ``o`` and the final state: the gradient XLA
+takes of the JAX model's own ``wkv6_chunked``, including its limit (its
+half-chunk centring overflows f32 where a chunk's log-decay sums past
+≈ 177, far outside the model's decay clip). A direct launch with such an
+input raises (``_grad.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -44,8 +55,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import wkv6_ref
+from repro_torch.kernels import _build, _grad
+from repro_torch.kernels.ref import wkv6_chunked, wkv6_ref
 
 F32 = torch.float32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,6 +132,33 @@ def wkv6(r, k, v, w, u, state, *, chunk: int = 32):
         return wkv6_ref(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for {r.device}")
+    args = (r, k, v, w, u, state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _WKV6.apply(*args, min(chunk, r.shape[1]))
+    return _launch(*args)
+
+
+class _WKV6(torch.autograd.Function):
+    """The kernel forward; the chunked plain form's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.chunk = chunk
+        return _launch(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        grads = _grad.plain_backward(
+            wkv6_chunked, ctx.saved_tensors, ctx.needs_input_grad[:6],
+            (do, ds), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def _launch(r, k, v, w, u, state):
+    """One kernel launch on CUDA tensors; raises on grad-requiring
+    inputs under grad mode (the Function's forward runs without it)."""
+    _grad.refuse_grad("wkv6", r, k, v, w, u, state)
     _check(r, k, v, w, u, state)
     B, T, H, K = r.shape
     o = torch.empty((B, T, H, K), dtype=F32, device=r.device)

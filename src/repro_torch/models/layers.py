@@ -24,16 +24,55 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
+def _product_f32(x, w):
+    if x.is_cuda:
+        mm = torch.mm if x.dim() == 2 else torch.bmm
+        return mm(x, w, out_dtype=F32)
+    return torch.matmul(x.to(F32), w.to(F32))
+
+
+def _product(x, w):
+    """Through the Function only where autograd records the product: the
+    serving paths keep the plain call."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ProductF32.apply(x, w)
+    return _product_f32(x, w)
+
+
+class _ProductF32(torch.autograd.Function):
+    """``x @ w`` (2-D, or batched 3-D) of low-precision operands with a
+    float32 result and float32 accumulation. Forward on the card: one
+    library product with ``out_dtype=float32``, which autograd cannot
+    differentiate; on the CPU the operands are cast to float32 first.
+    Backward, on both: the float32 cotangent times the other operand cast
+    to float32 (library products), each gradient cast to its operand's
+    dtype. That is JAX's transpose of a ``dot_general`` with
+    ``preferred_element_type=F32``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _product_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.matmul(g, w.to(F32).transpose(-1, -2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = torch.matmul(x.to(F32).transpose(-1, -2), g).to(w.dtype)
+        return gx, gw
+
+
 def matmul_f32(x, w):
     """``x @ w`` with a float32 result and float32 accumulation: the
     counterpart of ``jnp.einsum(..., preferred_element_type=F32)``.
     x: (..., K); w: (K, N)."""
     if x.dtype == F32 and w.dtype == F32:
         return x @ w
-    if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return x.to(F32) @ w.to(F32)
+    out = _product(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def bmm_f32(x, w):
@@ -42,9 +81,7 @@ def bmm_f32(x, w):
     preferred_element_type=F32)``. x: (E, C, K); w: (E, K, N)."""
     if x.dtype == F32 and w.dtype == F32:
         return torch.bmm(x, w)
-    if x.is_cuda:
-        return torch.bmm(x, w, out_dtype=F32)
-    return torch.bmm(x.to(F32), w.to(F32))
+    return _product(x, w)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,24 @@
 """Family dispatcher: the uniform API of ``repro.models.model_zoo`` over the
-families the port serves so far (``dense``, ``moe`` and ``rwkv6``).
+families the port serves and trains so far (``dense``, ``moe`` and
+``rwkv6``).
 
     init(cfg, seed, dtype, device)              -> params
-    forward(cfg, params, batch)                 -> logits   (full sequence)
+    forward(cfg, params, batch, remat=False)    -> logits   (full sequence)
     prefill(cfg, params, batch)                 -> (last_logits, cache)
     decode(cfg, params, cache, tok, pos)        -> (logits, cache)
     cache_specs(cfg, batch, max_len, dtype)     -> TensorSpec per cache field
     cache_zeros(cfg, batch, max_len, dtype, device)
 
-``batch`` is a dict with ``'tokens'`` (B, S). These are entry points: the
-device defaults to ``"cuda"`` and a run without a card raises; the CPU is
-asked for by name. ``forward``/``prefill``/``decode`` run where their
-tensors lie. The ``seed`` takes the place of JAX's ``PRNGKey``: torch draws
-other bits from it. The multimodal batch entries (``'embeds'``,
-``'frames'``) and the sharding and training arguments (``pctx``,
-``remat``) are not ported. The other families raise
-``NotImplementedError`` naming their ROADMAP item.
+``batch`` is a dict with ``'tokens'`` (B, S) and, for the LM families,
+optional ``'embeds'`` (B, N, D): the image-patch front end's stub tokens,
+prepended (rwkv6 ignores them, as in JAX); other entries (``'targets'``)
+are not read. ``'frames'`` (whisper's audio front end) raises
+``NotImplementedError``. These are entry points: the device defaults to
+``"cuda"`` and a run without a card raises; the CPU is asked for by name.
+``forward``/``prefill``/``decode`` run where their tensors lie. The
+``seed`` takes the place of JAX's ``PRNGKey``: torch draws other bits
+from it. The sharding argument ``pctx`` is not ported. The other families
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 from repro_torch.models import rwkv6
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.rwkv6 import TensorSpec
+from repro_torch.models.transformer import TensorSpec
 
 _TODO = {
     "zamba2": "zamba2 is not ported yet: ROADMAP.md, 'Modules still to "
@@ -57,10 +60,9 @@ def _device(device) -> torch.device:
 
 
 def _tokens(batch: Dict[str, Any]):
-    extra = set(batch) - {"tokens"}
-    if extra:
-        raise NotImplementedError(f"batch entries {sorted(extra)} are not "
-                                  "ported (multimodal front ends)")
+    if "frames" in batch:
+        raise NotImplementedError("batch['frames'] (the audio front end) is "
+                                  "not ported: " + _TODO["whisper"])
     return batch["tokens"]
 
 
@@ -74,15 +76,18 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     return rwkv6.init_rwkv(cfg, gen, dtype, dev)
 
 
-def forward(cfg: ModelConfig, params, batch: Dict[str, Any]):
+def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *,
+            remat: bool = False):
     if _family(cfg) == "lm":
-        return tf.lm_forward(cfg, params, _tokens(batch))
-    return rwkv6.rwkv_forward(cfg, params, _tokens(batch))
+        return tf.lm_forward(cfg, params, _tokens(batch),
+                             embeds=batch.get("embeds"), remat=remat)
+    return rwkv6.rwkv_forward(cfg, params, _tokens(batch), remat=remat)
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, Any]):
     if _family(cfg) == "lm":
-        return tf.lm_prefill(cfg, params, _tokens(batch))
+        return tf.lm_prefill(cfg, params, _tokens(batch),
+                             embeds=batch.get("embeds"))
     return rwkv6.rwkv_prefill(cfg, params, _tokens(batch))
 
 

@@ -5,14 +5,18 @@ runs the WKV6 recurrence through ``ops.wkv``: on the card the hand-written
 ``wkv6`` kernel, on the CPU its plain sequential version. The JAX model
 runs its own jnp ``wkv6_chunked`` there instead and reaches the Pallas
 kernel only through its ``ops.wkv``; the port puts the kernel on the
-path, a deliberate difference (ROADMAP.md section 3). ``wkv6_chunked`` and
-``wkv6_step`` stay here as plain functions held against JAX's.
+path, a deliberate difference (ROADMAP.md section 3). ``wkv6_step`` stays
+here and ``wkv6_chunked`` in ``kernels/ref.py`` (imported here), plain
+functions held against JAX's.
 
 The layer ``scan`` becomes a Python loop over the stacked per-layer
-weights. ``rwkv_forward`` keeps the serving arguments (``state``,
-``return_state``); ``pctx`` and ``remat`` (sharding, training) are not
-ported, nor is the JAX package's ``REPRO_PROBE_CHUNK`` override (a knob of
-its roofline probe). Dtypes follow the JAX model point for point: the
+weights. ``rwkv_forward`` takes the serving arguments (``state``,
+``return_state``) and the training one, ``remat``; ``pctx`` (sharding)
+is not ported, nor is the JAX package's ``REPRO_PROBE_CHUNK`` override (a
+knob of its roofline probe). Training on the card differentiates through
+the kernel: ``ops.wkv``'s autograd Function recomputes the chunked plain
+form in its backward (``kernels/wkv6.py``). Dtypes follow the JAX model
+point for point: the
 mixing and decay LoRAs accumulate in f32, r/k/v stay in the model dtype,
 the gate, the decay and the recurrence's output are f32, and ``w_base``,
 ``u`` and ``ln_x_scale`` are f32 leaves under a bf16 model.
@@ -20,25 +24,20 @@ the gate, the decay and the recurrence's output are f32, and ``w_base``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import wkv6_chunked  # noqa: F401  (re-export)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import matmul_f32, rms_norm
-from repro_torch.models.transformer import _normal, layer_params
+from repro_torch.models.transformer import TensorSpec, _normal, layer_params
 
 F32 = torch.float32
 MIX_NAMES = ("w", "k", "v", "r", "g")
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of a tensor not yet allocated (the port's
-    counterpart of ``jax.ShapeDtypeStruct``)."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
 
 
 def _heads(cfg: ModelConfig) -> Tuple[int, int]:
@@ -125,52 +124,12 @@ def init_rwkv(cfg: ModelConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
-# WKV6 plain forms (held against JAX's; the model path runs ops.wkv)
+# WKV6 plain forms (held against JAX's; the model path runs ops.wkv).
+# ``wkv6_chunked`` lives in kernels/ref.py, where the wkv6 kernel's
+# backward recomputes it.
 #   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 #   o_t = r_t @ S_{t-1} + (r_t . (u*k_t)) v_t
 # ---------------------------------------------------------------------------
-
-def wkv6_chunked(r, k, v, w, u, state, chunk: int = 32):
-    """r,k,v,w: (B, T, H, K) [w in (0,1)]; u: (H, K); state: (B, H, K, K)
-    f32. Returns (o (B,T,H,K) f32, new state). T must be a multiple of
-    ``chunk``.
-
-    The chunked form of the JAX model, op for op: the intra-chunk term
-    factors exp(cum_{t-1} - cum_i) into two factors, each centred by half
-    the chunk's total log-decay, and the masked triangle is zeroed with
-    ``where`` (an inf times 0 would give NaN)."""
-    B, T, H, K = r.shape
-    if T % chunk:
-        raise ValueError(f"T={T} is not a multiple of chunk={chunk}")
-    n_chunks = T // chunk
-    shp = (B, n_chunks, chunk, H, K)
-    rs, ks_, vs = (a.to(F32).reshape(shp) for a in (r, k, v))
-    lw = torch.log(torch.clamp(w.to(F32), 1e-12, 1.0)).reshape(shp)
-    uf = u.to(F32)
-    S = state.to(F32)
-    ti = torch.arange(chunk, device=r.device)
-    tri = ti[None, :] < ti[:, None]              # strictly lower triangular
-    outs = []
-    for c in range(n_chunks):
-        rc, kc, vc, lwc = rs[:, c], ks_[:, c], vs[:, c], lw[:, c]
-        cum = torch.cumsum(lwc, dim=1)           # inclusive decay logs
-        r_dec = rc * torch.exp(cum - lwc)        # decay excludes current step
-        o_inter = torch.einsum("bchk,bhkv->bchv", r_dec, S)
-        half = 0.5 * cum[:, -1:]                 # centring offset (B,1,H,K)
-        q_ = rc * torch.exp(cum - lwc - half)
-        k_ = kc * torch.exp(half - cum)
-        att = torch.einsum("bchk,bihk->bhci", q_, k_)
-        att = torch.where(tri[None, None], att, torch.zeros_like(att))
-        o_intra = torch.einsum("bhci,bihv->bchv", att, vc)
-        bonus = torch.einsum("bchk,bchk->bch", rc, uf[None, None] * kc)
-        outs.append(o_inter + o_intra + bonus[..., None] * vc)
-        total = cum[:, -1]                       # (B, H, K)
-        k_dec = kc * torch.exp(total[:, None] - cum)
-        S = torch.exp(total)[..., None] * S + \
-            torch.einsum("bchk,bchv->bhkv", k_dec, vc)
-    o = torch.stack(outs, dim=1).reshape(B, T, H, K)
-    return o, S
-
 
 def wkv6_step(r, k, v, w, u, state):
     """Single-token recurrence. r,k,v,w: (B, H, K); state (B, H, K, K) f32."""
@@ -264,26 +223,38 @@ def channel_mix(p, x, shift_in):
 # model-level forward
 # ---------------------------------------------------------------------------
 
+def _layer(cfg: ModelConfig, lp, x, att_shift, ffn_shift, wkv_state):
+    """One block: time mix, then channel mix, each a residual. Returns
+    (x, att_last, ffn_last, wkv_new)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    att, att_last, wkv_new = time_mix_full(cfg, lp, h, att_shift, wkv_state)
+    x = x + att
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    ffn, ffn_last = channel_mix(lp, h2, ffn_shift)
+    return x + ffn, att_last, ffn_last, wkv_new
+
+
 def rwkv_forward(cfg: ModelConfig, params, tokens, *,
                  state: Optional[RWKVState] = None,
-                 return_state: bool = False):
+                 return_state: bool = False, remat: bool = False):
     """tokens (B, T) -> logits (B, T, V) float32; optionally the carried
     ``RWKVState``. A ``state`` resumes the sequences where it left them
-    (decode, or a later round's prompt)."""
+    (decode, or a later round's prompt). ``remat`` recomputes each layer
+    in the backward (``torch.utils.checkpoint``, non-reentrant: the
+    counterpart of ``jax.checkpoint``)."""
     B, T = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = F.embedding(tokens.long(), params["embed"])   # see tf._embed
     if state is None:
         state = RWKVState.zeros(cfg, B, x.dtype, x.device)
     att_s, ffn_s, wkv_s = [], [], []
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        att, att_last, wkv_new = time_mix_full(cfg, lp, h, state.att_shift[l],
-                                               state.wkv[l])
-        x = x + att
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        ffn, ffn_last = channel_mix(lp, h2, state.ffn_shift[l])
-        x = x + ffn
+        args = (cfg, layer_params(params["layers"], l), x, state.att_shift[l],
+                state.ffn_shift[l], state.wkv[l])
+        if remat:
+            x, att_last, ffn_last, wkv_new = checkpoint(
+                _layer, *args, use_reentrant=False)
+        else:
+            x, att_last, ffn_last, wkv_new = _layer(*args)
         att_s.append(att_last)
         ffn_s.append(ffn_last)
         wkv_s.append(wkv_new)

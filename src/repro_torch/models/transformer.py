@@ -1,6 +1,7 @@
-"""Decoder-only LM: the serving paths of ``repro.models.transformer``
-(dense and MoE families) in PyTorch, on a paged KV pool and on the dense
-slot cache.
+"""Decoder-only LM: ``repro.models.transformer`` (dense and MoE families)
+in PyTorch: the serving paths on a paged KV pool and on the dense slot
+cache, the training forward (``lm_forward`` with ``embeds``, ``remat``
+and ``return_hidden``) and the windowed decode.
 
 The layer ``scan`` of the JAX package becomes a loop over the stacked
 per-layer weights, and the pack ``scan`` of ``lm_mixed_paged`` a loop over
@@ -15,9 +16,11 @@ layer's own (padded) token set, as in JAX; its expert-parallel form
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (F32, apply_norm, attention, attn_out,
@@ -25,6 +28,13 @@ from repro_torch.models.layers import (F32, apply_norm, attention, attn_out,
                                        matmul_f32, mlp, moe_ffn,
                                        paged_decode_attention,
                                        paged_prefill_attention)
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor not yet allocated (the port's
+    counterpart of ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
 
 # ---------------------------------------------------------------------------
 # init
@@ -124,11 +134,16 @@ def _window(cfg: ModelConfig, is_local: bool) -> Optional[int]:
 # blocks
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params, tokens):
-    x = params["embed"][tokens.long()]
+def _embed(cfg: ModelConfig, params, tokens, embeds=None):
+    # F.embedding, not indexing: its backward sums a token's rows in a
+    # fixed order (indexing's accumulating scatter does not on the CPU),
+    # so a resumed training run repeats the uninterrupted one bit for bit
+    x = F.embedding(tokens.long(), params["embed"])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if embeds is not None:   # modality-stub tokens are prepended
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
     return x
 
 
@@ -178,7 +193,8 @@ class KVCache:
 
 
 def _layer_full(cfg: ModelConfig, x, lp, is_local: bool, positions):
-    """Full-sequence layer (prefill from position 0). Returns (x, (k, v))."""
+    """Full-sequence layer (train / prefill from position 0). Returns
+    (x, (k, v))."""
     h = apply_norm(cfg, lp["ln_attn"], x)
     q, k, v = attn_qkv(cfg, lp["attn"], h, positions)
     o = dense_prefill_attention(q, k, v, window=_window(cfg, is_local),
@@ -186,36 +202,54 @@ def _layer_full(cfg: ModelConfig, x, lp, is_local: bool, positions):
     return _ffn_residual(cfg, lp, x, o), (k, v)
 
 
-def lm_forward(cfg: ModelConfig, params, tokens, *,
-               return_cache: bool = False):
-    """tokens (B, S) -> logits (B, S, V) float32; optionally the per-layer
-    KV as a ``KVCache`` of length S.
+def lm_forward(cfg: ModelConfig, params, tokens, *, embeds=None,
+               positions=None, return_cache: bool = False,
+               remat: bool = False, return_hidden: bool = False):
+    """tokens (B, S) -> logits (B, S_total, V) float32; optionally the
+    per-layer KV as a ``KVCache`` of length S_total.
 
-    The serving subset of the JAX ``lm_forward``: every row runs at
-    positions ``0..S-1`` through the flash attention (``q_offset`` 0). The
-    training and multimodal arguments (``positions``, ``embeds``,
-    ``remat``, ``pctx``) are not ported."""
-    x = _embed(cfg, params, tokens)
+    ``embeds`` (B, N, D) are prepended to the token embeddings (the
+    multimodal front end's stub tokens), so S_total = N + S. Every row
+    runs at ``0..S_total-1`` through the flash attention (``q_offset`` 0,
+    the kernel on the card). ``remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant: the counterpart of
+    ``jax.checkpoint(policy=nothing_saveable)``), ``return_hidden``
+    returns the final-norm hidden states (B, S_total, D) instead of the
+    logits. Not ported: ``positions`` (no caller passes it; rows off
+    ``0..S_total-1`` cannot reach the kernel, which takes one host
+    offset) and the sharding argument ``pctx``."""
+    if positions is not None:
+        raise NotImplementedError("lm_forward: given positions are not "
+                                  "ported; rows run at 0..S-1")
+    x = _embed(cfg, params, tokens, embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     ks, vs = [], []
     for l, is_local in enumerate(layer_kind_flags(cfg)):
-        x, (k, v) = _layer_full(cfg, x, layer_params(params["layers"], l),
-                                is_local, positions)
+        lp = layer_params(params["layers"], l)
+        if remat:
+            x, (k, v) = checkpoint(_layer_full, cfg, x, lp, is_local,
+                                   positions, use_reentrant=False)
+        else:
+            x, (k, v) = _layer_full(cfg, x, lp, is_local, positions)
         if return_cache:
             ks.append(k)
             vs.append(v)
     x = apply_norm(cfg, params["ln_final"], x)
+    if return_hidden:
+        return x
     logits = _unembed(cfg, params, x)
     if return_cache:
         return logits, KVCache(torch.stack(ks), torch.stack(vs))
     return logits
 
 
-def lm_prefill(cfg: ModelConfig, params, tokens):
-    """tokens (B, S) -> (last-position logits (B, V), KVCache of length S)."""
-    logits, cache = lm_forward(cfg, params, tokens, return_cache=True)
+def lm_prefill(cfg: ModelConfig, params, tokens, *, embeds=None):
+    """tokens (B, S) -> (last-position logits (B, V), KVCache of length
+    S_total)."""
+    logits, cache = lm_forward(cfg, params, tokens, embeds=embeds,
+                               return_cache=True)
     return logits[:, -1], cache
 
 
@@ -293,6 +327,88 @@ def lm_decode(cfg: ModelConfig, params, cache: KVCache, tokens, positions):
     logits, cache = lm_step(cfg, params, cache, tokens[:, None],
                             positions[:, None])
     return logits[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# windowed decode: local (sliding-window) layers keep a ring buffer of
+# ``window`` KV slots instead of the full sequence, which halves the KV of a
+# gemma2-style local/global alternation exactly. Plain attention over the
+# ring, as the JAX package computes it outside any Pallas kernel.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WindowedKVCache:
+    """k/v_loc: (Lp, B, W, Hkv, Dh) ring buffers (local layers); k/v_glob:
+    (Lp, B, Smax, Hkv, Dh), Lp = n_layers / 2. The layer pattern must be
+    ('local', 'global'). Updated in place by ``lm_decode_windowed``."""
+    k_loc: Any
+    v_loc: Any
+    k_glob: Any
+    v_glob: Any
+
+    @classmethod
+    def specs(cls, cfg: ModelConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16):
+        if cfg.layer_pattern != ("local", "global"):
+            raise ValueError("windowed KV needs the ('local', 'global') "
+                             f"layer pattern, not {cfg.layer_pattern}")
+        Lp = cfg.n_layers // 2
+        loc = TensorSpec((Lp, batch, cfg.sliding_window, cfg.n_kv_heads,
+                          cfg.head_dim_), dtype)
+        glob = TensorSpec((Lp, batch, max_len, cfg.n_kv_heads,
+                           cfg.head_dim_), dtype)
+        return cls(loc, loc, glob, glob)
+
+    @classmethod
+    def zeros(cls, cfg: ModelConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16, device="cpu"):
+        specs = cls.specs(cfg, batch, max_len, dtype)
+        return cls(*(torch.zeros(sp.shape, dtype=dtype, device=device)
+                     for sp in (specs.k_loc, specs.v_loc, specs.k_glob,
+                                specs.v_glob)))
+
+
+def lm_decode_windowed(cfg: ModelConfig, params, cache: WindowedKVCache,
+                       tokens, positions):
+    """Single-token decode with ring-buffered local layers: tokens (B,),
+    positions (B,) -> (logits (B, V) float32, cache). Exact semantics:
+    slot i of the ring holds the most recent position p <= pos with
+    p = i (mod W), which is precisely the sliding-window attention set."""
+    if cfg.layer_pattern != ("local", "global"):
+        raise ValueError("windowed decode needs the ('local', 'global') "
+                         f"layer pattern, not {cfg.layer_pattern}")
+    B = tokens.shape[0]
+    W = cfg.sliding_window
+    Smax = cache.k_glob.shape[2]
+    x = _embed(cfg, params, tokens[:, None])
+    dev = x.device
+    b_idx = torch.arange(B, device=dev)
+    q_pos = positions[:, None]
+    slot = torch.arange(W, dtype=positions.dtype, device=dev)
+    ring_pos = q_pos - ((q_pos - slot[None]) % W)      # floor mod, as jnp's
+    ring_valid = ring_pos >= 0
+    kv_pos_g = torch.arange(Smax, dtype=positions.dtype,
+                            device=dev).expand(B, Smax)
+    kv_valid_g = kv_pos_g <= q_pos
+
+    def sublayer(x, lp, k_l, v_l, kv_pos, kv_valid, write_pos):
+        h = apply_norm(cfg, lp["ln_attn"], x)
+        q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
+        k_l.index_put_((b_idx, write_pos.long()), k_new[:, 0])
+        v_l.index_put_((b_idx, write_pos.long()), v_new[:, 0])
+        o = attention(q, k_l, v_l, q_pos, kv_pos, kv_valid=kv_valid,
+                      causal=True, softcap=cfg.attn_logit_softcap)
+        return _ffn_residual(cfg, lp, x, o)
+
+    for i in range(cfg.n_layers // 2):
+        x = sublayer(x, layer_params(params["layers"], 2 * i),
+                     cache.k_loc[i], cache.v_loc[i], ring_pos, ring_valid,
+                     positions % W)
+        x = sublayer(x, layer_params(params["layers"], 2 * i + 1),
+                     cache.k_glob[i], cache.v_glob[i], kv_pos_g, kv_valid_g,
+                     positions)
+    x = apply_norm(cfg, params["ln_final"], x)
+    return _unembed(cfg, params, x[:, 0]), cache
 
 
 # ---------------------------------------------------------------------------

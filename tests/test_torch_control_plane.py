@@ -3,12 +3,12 @@ port's import boundary.
 
 ``src/repro_torch`` carries copies of the JAX-free control plane
 (``core``, ``kvcache``, ``engine``, ``configs``, ``models.config``,
-``models.perf_model``, ``workloads.generator``) so that it imports nothing
-of ``repro``. These tests keep the copies honest: each differs from its
-reference only in its import lines, and the copied Engine over
-``SimBackend`` replays a seeded scenario event for event. The boundary
-test imports the port's entry points and ``chip_smoke.py`` in a fresh
-interpreter in which ``jax`` and ``repro`` cannot be imported.
+``models.perf_model``, ``workloads.generator``, ``train.data``) so that
+it imports nothing of ``repro``. These tests keep the copies honest: each
+differs from its reference only in its import lines, and the copied
+Engine over ``SimBackend`` replays a seeded scenario event for event. The
+boundary test imports the port's entry points and ``chip_smoke.py`` in a
+fresh interpreter in which ``jax`` and ``repro`` cannot be imported.
 """
 import os
 import re
@@ -26,11 +26,11 @@ SRC = ROOT / "src"
 COPIED = sorted(
     str(p.relative_to(SRC / "repro_torch"))
     for sub in ("core", "kvcache", "configs", "engine", "models",
-                "workloads")
+                "workloads", "train")
     for p in (SRC / "repro_torch" / sub).glob("*.py")
     if (SRC / "repro" / p.relative_to(SRC / "repro_torch")).exists()
     and p.name not in ("layers.py", "transformer.py", "rwkv6.py",
-                       "model_zoo.py"))   # ported, not copied
+                       "model_zoo.py", "optimizer.py"))   # ported, not copied
 
 
 def test_copies_cover_the_engine_closure():
@@ -38,7 +38,8 @@ def test_copies_cover_the_engine_closure():
                  "engine/block_manager.py", "kvcache/pool.py",
                  "kvcache/swap_stream.py", "core/policies.py",
                  "models/config.py", "configs/registry.py",
-                 "configs/llama3_2_1b.py", "workloads/generator.py"):
+                 "configs/llama3_2_1b.py", "workloads/generator.py",
+                 "train/data.py"):
         assert name in COPIED
 
 
@@ -102,6 +103,10 @@ import repro_torch.launch.serve
 import repro_torch.kernels.ops
 import repro_torch.kernels.flash_attention
 import repro_torch.models.transformer
+import repro_torch.launch.train
+import repro_torch.distributed.steps
+import repro_torch.distributed.checkpoint
+import repro_torch.train.optimizer
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -141,6 +141,36 @@ granite-moe-3b-a800m) adds, in run order:
   lanes): wall vs device time, idle share, device time by MoE step and
   by paged kernel. Freed before serve-dense.
 
+The zamba2 (Mamba2 + shared attention) and whisper (encoder-decoder)
+families add, in run order:
+
+- kernels: flash_attention in f32 and bf16 at whisper's non-causal
+  shapes with Sq != Skv (B 2, H 6, D 64: 448, 4 and 1 rows over 1,500
+  keys) and zamba2's MHA (G 1, H 32, D 64, Sq = Skv = 1,024, causal), on
+  model-layout views whose K/V storage holds NaN past Skv;
+- model-ssm (after model-moe): zamba2-1.2b and whisper-tiny .reduced(),
+  f32, card (flash kernel) vs CPU on the same weights: forward, prefill
+  and a decode step from the padded cache; logits and every cache field
+  within 1e-4 of the largest magnitude, next tokens equal, the flash
+  launches counted;
+- timing: flash_attention at whisper's cross-attention (B 8, H 6, 448 x
+  1,500, non-causal) and zamba2's shared block (B 8, H 32, T 1,024,
+  causal): event and device times, the plain version, SDPA and the bound,
+  logged apart from the kernels JSON;
+- serve-zamba, profile-zamba, serve-whisper (after profile-rwkv):
+  zamba2-1.2b at full width in bf16 (8 prompts of 1,024 in one prefill,
+  flash_attention exactly 6 times, the cache padded to 1,056, 16 greedy
+  decode steps); the profile of that prefill and of a decode step (the
+  SSD scan's and the flash kernel's shares); whisper-tiny at full width
+  in bf16 (B 8 x 1,500 frames, a 4-token prompt, flash_attention exactly
+  12 times, greedy decode to 64 tokens in a self cache of 448); each then
+  in f32 at B 1, prefill plus teacher-forced decode steps against one
+  forward over the whole sequence, within 1e-3 of the largest logit;
+- train: both .reduced() in the card-vs-CPU gradient check, then
+  full-width zamba2-1.2b (B 4 x S 512) and whisper-tiny (B 8 x S 448), 3
+  f32 steps each with remat, each run's first flash call held against its
+  plain version.
+
 The line before the last is the kernels JSON line; the last line is the
 device JSON line. TF32 is off throughout (float32 parity).
 """
@@ -186,7 +216,7 @@ from repro_torch.kernels.wkv6 import _WKV6, wkv6  # noqa: E402
 from repro_torch.distributed import steps as train_steps  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.train.optimizer import init_opt  # noqa: E402
-from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models import mamba2, model_zoo, zamba2  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
@@ -519,6 +549,40 @@ def _flash_sweeps(errs, gen, dtype):
                                 window=window, softcap=GEMMA2_SOFTCAP)
         log(f"[kernels] flash_attention {str(dtype)[6:]} main-path chunk, "
             f"window {window}: max abs err {err:.3e} (tol {tol:.3e})")
+    for case in SSM_FLASH_CASES:
+        _check_flash_tail(errs, gen, dtype, *case)
+
+
+# whisper's non-causal shapes (the cross-attention of the decoder's 448
+# rows, of a 4-token prompt and of a decode row over 1,500 encoder frames)
+# and zamba2's shared block (MHA, G 1, causal): (B, Hq, Hkv, Sq, Skv, D,
+# causal)
+SSM_FLASH_CASES = [(2, 6, 6, 448, 1500, 64, False),
+                   (2, 6, 6, 4, 1500, 64, False),
+                   (2, 6, 6, 1, 1500, 64, False),
+                   (2, 32, 32, 1024, 1024, 64, True)]
+
+
+def _check_flash_tail(errs, gen, dtype, B, Hq, Hkv, Sq, Skv, D, causal):
+    """flash_attention on model-layout views (a (B, Sq, Hq, D) query, a
+    (B, Skv, Hkv, D) K/V) whose K/V storage runs 64 positions past Skv
+    with NaN there, where no row may look (1,500 ends mid-tile). Held
+    against the plain version on the same views."""
+    q = _randn(gen, (B, Sq, Hq, D), dtype).transpose(1, 2)
+    k, v = (_randn(gen, (B, Skv + 64, Hkv, D), dtype) for _ in range(2))
+    for t in (k, v):
+        t[:, Skv:] = float("nan")
+    k, v = (t[:, :Skv].transpose(1, 2) for t in (k, v))
+    got = flash_attention(q, k, v, causal=causal)
+    what = (f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D} "
+            f"causal={causal}, NaN past Skv")
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"flash_attention {what}: non-finite output")
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = _attn_tol(dtype, want)
+    err = errs.check("flash_attention", dtype, got, want, tol, what)
+    log(f"[kernels] flash_attention {str(dtype)[6:]} {what}: max abs err "
+        f"{err:.3e} (tol {tol:.3e})")
 
 
 # (B, T, H, K, chunk) of test_wkv6_shapes
@@ -1631,7 +1695,7 @@ def _greedy(cfg, params, last, state, steps, start):
 
 def _finite(x, what):
     if not torch.isfinite(x).all():
-        raise AssertionError(f"serve-rwkv: non-finite logits in {what}")
+        raise AssertionError(f"non-finite logits in {what}")
 
 
 def phase_serve_rwkv():
@@ -1665,14 +1729,14 @@ def phase_serve_rwkv():
     last, state = model_zoo.prefill(cfg, params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_ms = (time.monotonic() - t0) * 1e3
-    _finite(last, "prefill")
+    _finite(last, "serve-rwkv prefill")
     last, state, dec = _greedy(cfg, params, last, state, n_dec, T)
     t0 = time.monotonic()
     logits, state = rwkv6.rwkv_forward(cfg, params, tools, state=state,
                                        return_state=True)
     torch.cuda.synchronize()
     resume_ms = (time.monotonic() - t0) * 1e3
-    _finite(logits, "resume")
+    _finite(logits, "serve-rwkv resume")
     last, state, dec2 = _greedy(cfg, params, logits[:, -1], state, n_dec,
                                 T + n_dec + S["tool"])
     launches = {name: k["fn"].launches for name, k in KERNELS.items()}
@@ -1728,6 +1792,359 @@ def _carried_state_check(cfg, params, prompt, tool):
         f"last argmax equal: {same}")
     if not err <= tol or not same:
         raise AssertionError("serve-rwkv: carried state != recompute")
+
+
+# ---------------------------------------------------------------------------
+# the zamba2 (Mamba2 + shared attention) and whisper (encoder-decoder)
+# families through model_zoo: card vs CPU at .reduced(), then full width
+# ---------------------------------------------------------------------------
+
+def _cache_fields(cache, prefix=""):
+    """(name, tensor) of every field of a (nested) cache dataclass."""
+    out = []
+    for f in dataclasses.fields(cache):
+        v = getattr(cache, f.name)
+        out += _cache_fields(v, f"{prefix}{f.name}.") \
+            if dataclasses.is_dataclass(v) else [(prefix + f.name, v)]
+    return out
+
+
+def _padded(cfg, cache, max_len):
+    """A prefill cache (its K/V exactly as long as the prompt, as in JAX)
+    copied into zeros of ``max_len`` positions, where a decode step has
+    room to write; the Mamba states and the cross K/V are carried over."""
+    if cfg.family == "zamba2":
+        B, T = cache.k.shape[1:3]
+        out = model_zoo.cache_zeros(cfg, B, max_len, cache.k.dtype,
+                                    device=cache.k.device)
+        out.k[:, :, :T], out.v[:, :, :T] = cache.k, cache.v
+        out.mamba = cache.mamba
+        return out
+    B, T = cache.self_k.shape[1:3]
+    out = model_zoo.cache_zeros(cfg, B, max_len, cache.self_k.dtype,
+                                enc_len=cache.cross_k.shape[2],
+                                device=cache.self_k.device)
+    out.self_k[:, :, :T], out.self_v[:, :, :T] = cache.self_k, cache.self_v
+    out.cross_k, out.cross_v = cache.cross_k, cache.cross_v
+    return out
+
+
+def _flash_calls(cfg) -> int:
+    """flash_attention launches of one forward or prefill: one per shared
+    block application (zamba2); per encoder layer, and twice per decoder
+    layer (self- and cross-attention) for whisper."""
+    if cfg.family == "zamba2":
+        return len(zamba2.shared_positions(cfg))
+    return cfg.n_enc_layers + 2 * cfg.n_layers
+
+
+def _ssm_batch(cfg, rng, B, T, frames=40):
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32))}
+    if cfg.family == "whisper":
+        batch["frames"] = torch.from_numpy((rng.standard_normal(
+            (B, frames, cfg.d_model)) * 0.1).astype(np.float32))
+    return batch
+
+
+def phase_model_ssm() -> None:
+    """zamba2-1.2b and whisper-tiny .reduced(), f32, the same weights on
+    the card (flash kernel) and on the CPU (plain version): forward,
+    prefill and a decode step from the prefill's cache padded by 8
+    positions. Logits and every cache field within MODEL_TOL of the
+    tensor's largest magnitude (at least 1), next tokens equal;
+    flash_attention launched ``_flash_calls`` times by each forward and
+    prefill on the card and never by the decode step."""
+    for arch in ("zamba2-1.2b", "whisper-tiny"):
+        cfg = get_config(arch).reduced()
+        params = model_zoo.init(cfg, 0, torch.float32, device="cpu")
+        dparams = _to_device(params)
+        rng = np.random.default_rng(6)
+        B, T = 2, 32
+        batch = _ssm_batch(cfg, rng, B, T)
+        dbatch = {k: v.to(DEV) for k, v in batch.items()}
+        worst = 0.0
+
+        def agree(got, want, what):
+            nonlocal worst
+            scale = max(1.0, want.float().abs().max().item())
+            err = (got.float().cpu() - want.float()).abs().max().item()
+            worst = max(worst, err / scale)
+            if not err <= MODEL_TOL * scale:
+                raise AssertionError(f"model-ssm {arch} {what}: max abs err "
+                                     f"{err} of the magnitude {scale}")
+
+        def caches(got, want, what):
+            for (name, g), (_, w) in zip(_cache_fields(got),
+                                         _cache_fields(want)):
+                agree(g, w, f"{what} {name}")
+
+        def same_next(got, want, what):
+            if torch.argmax(got, -1).cpu().tolist() != \
+                    torch.argmax(want, -1).tolist():
+                raise AssertionError(f"model-ssm {arch} {what}: next tokens "
+                                     "differ")
+
+        before = _launches("flash_attention")
+        agree(model_zoo.forward(cfg, dparams, dbatch),
+              model_zoo.forward(cfg, params, batch), "forward logits")
+        lg, cg = model_zoo.prefill(cfg, dparams, dbatch)
+        lc, cc = model_zoo.prefill(cfg, params, batch)
+        agree(lg, lc, "prefill logits")
+        caches(cg, cc, "prefill")
+        same_next(lg, lc, "prefill")
+        launched = _launches("flash_attention") - before
+        cg, cc = _padded(cfg, cg, T + 8), _padded(cfg, cc, T + 8)
+        nxt = torch.argmax(lc, -1).to(torch.int32)
+        pos = torch.full((B,), T, dtype=torch.int32)
+        lc, cc = model_zoo.decode(cfg, params, cc, nxt, pos)
+        lg, cg = model_zoo.decode(cfg, dparams, cg, nxt.to(DEV), pos.to(DEV))
+        agree(lg, lc, "decode logits")
+        caches(cg, cc, "decode")
+        same_next(lg, lc, "decode")
+        total = _launches("flash_attention") - before
+        if launched != 2 * _flash_calls(cfg) or total != launched:
+            raise AssertionError(f"model-ssm {arch}: flash_attention "
+                                 f"launched {launched} times by forward and "
+                                 f"prefill, {total} in all; expected "
+                                 f"{2 * _flash_calls(cfg)}")
+        log(f"[model] {arch} reduced f32: card vs cpu max abs err "
+            f"{worst:.3e} of the largest magnitude (tol {MODEL_TOL}) over "
+            f"the logits and {len(_cache_fields(cc))} cache fields; next "
+            f"tokens equal; flash_attention launched {launched} times "
+            f"(forward and prefill), none in the decode step")
+
+
+ZAMBA_SERVE = dict(sessions=8, prompt=1024, pad=1056, decode=16)
+WHISPER_SERVE = dict(sessions=8, frames=1500, prompt=4, to=64, pad=448)
+# f32, B = 1: prefill(S) then D - 1 teacher-forced decode steps against one
+# forward over S + D tokens (zamba2: 15 SSD chunks of 64, then 64 steps
+# that end on a chunk boundary of the forward)
+ZAMBA_CHECK = dict(S=960, D=64)
+WHISPER_CHECK = dict(S=4, D=60)
+
+
+def _decode_vs_forward(label, cfg, params, tokens, S, frames=None):
+    """f32, B = 1: prefill(tokens[:, :S]) then teacher-forced decode steps
+    over the rest of ``tokens`` (from the padded cache) give one forward's
+    logits over the whole of ``tokens`` at every decoded position; the
+    first is ``forward(S + 1)``'s last logits (causality). This holds the
+    chunked SSD (zamba2) and the flash attentions (both) against their
+    one-step forms at full width. Tolerance CARRY_TOL of the largest
+    logit; the same argmax at the first decoded position, and at every
+    other one whose top two logits differ by more than twice its error
+    (closer ties counted)."""
+    p32 = _tree_map(lambda t: t.float(), params)
+    N = tokens.shape[1]
+    extra = {} if frames is None else {"frames": frames.float()}
+    want = model_zoo.forward(cfg, p32, {"tokens": tokens, **extra})[0]
+    last, cache = model_zoo.prefill(cfg, p32, {"tokens": tokens[:, :S],
+                                              **extra})
+    cache = _padded(cfg, cache, N)
+    got = [last[0]]
+    for i in range(S, N - 1):
+        last, cache = model_zoo.decode(
+            cfg, p32, cache, tokens[:, i],
+            torch.full((1,), i, dtype=torch.int32, device=DEV))
+        got.append(last[0])
+    got, want = torch.stack(got), want[S - 1:N - 1]
+    err_row = (got - want).abs().amax(-1)
+    err = err_row.max().item()
+    tol = CARRY_TOL * max(1.0, want.abs().max().item())
+    top = torch.topk(want, 2, -1).values
+    decided = top[:, 0] - top[:, 1] > 2 * err_row
+    decided[0] = True
+    same = torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided])
+    log(f"[{label}] f32 B=1: prefill({S}) + {N - S - 1} decode steps vs "
+        f"forward({N}): max abs err {err:.3e} over {N - S} positions (tol "
+        f"{tol:.3e}; largest |logit| {want.abs().max().item():.3f}; at the "
+        f"first, forward({S + 1})'s last: {err_row[0].item():.3e}); argmax "
+        f"equal: {same} ({int((~decided).sum())} near ties not compared)")
+    if not err <= tol or not same:
+        raise AssertionError(f"{label}: decode steps != forward")
+
+
+def _param_count(params) -> int:
+    return sum(t.numel() for _, t in _named_leaves(params))
+
+
+def phase_serve_zamba():
+    """zamba2-1.2b at full width in bf16 through model_zoo: one prefill of
+    8 sessions' 1,024-token prompts (flash_attention launched exactly once
+    per shared block application, 6, and no other kernel), the cache
+    padded to 1,056, 16 greedy decode steps (plain attention: no kernel),
+    every logit finite; then _decode_vs_forward in f32. Returns the
+    launches and the weights (the zamba2 profile runs on them)."""
+    cfg = get_config("zamba2-1.2b")
+    S = ZAMBA_SERVE
+    B, T, n_dec = S["sessions"], S["prompt"], S["decode"]
+    t0 = time.monotonic()
+    params = model_zoo.init(cfg, 0, torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    n_apps = len(zamba2.shared_positions(cfg))
+    log(f"[serve-zamba] zamba2-1.2b full width (L={cfg.n_layers} Mamba2 "
+        f"d={cfg.d_model} d_inner={s.d_inner(cfg.d_model)} "
+        f"H={s.n_heads(cfg.d_model)} P={s.head_dim} N={s.d_state} chunk "
+        f"{s.chunk_size}; shared block x{n_apps}: Hq=Hkv={cfg.n_heads} "
+        f"D={cfg.head_dim_} d_ff={cfg.d_ff}; V={cfg.vocab_size}; "
+        f"{_param_count(params) / 1e9:.3f} B params counted) bf16: set-up "
+        f"{time.monotonic() - t0:.2f}s, device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
+                               .astype(np.int32)).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+    t0 = time.monotonic()
+    last, cache = model_zoo.prefill(cfg, params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    _finite(last, "serve-zamba prefill")
+    last, cache, dec = _greedy(cfg, params, last,
+                               _padded(cfg, cache, S["pad"]), n_dec, T)
+    after = {name: k["fn"].launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = float(np.median(dec))
+    log(f"[serve-zamba] on {torch.cuda.get_device_name(0)}: prefill {B}x{T}"
+        f" {prefill_ms:.2f} ms ({B * T / prefill_ms * 1e3:.0f} tokens/s), "
+        f"decode step median {step_ms:.3f} ms (min {min(dec):.3f}, max "
+        f"{max(dec):.3f}) = {B / step_ms * 1e3:.1f} tokens/s over {B} "
+        f"sessions; peak device memory {peak:.2f} GB")
+    log(f"[serve-zamba] kernel launches in the prefill: {launches} "
+        f"({n_apps} shared block applications); after {n_dec} decode "
+        f"steps: {after}")
+    if launches["flash_attention"] != n_apps or after != launches:
+        raise AssertionError("serve-zamba: flash_attention launches != "
+                             "shared block applications, or a decode step "
+                             "launched a kernel")
+    for name, n in launches.items():
+        if name not in DENSE_PATH and n:
+            raise AssertionError(f"serve-zamba: {name} ran")
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, sum(ZAMBA_CHECK.values()))).astype(
+            np.int32)).to(DEV)
+    _decode_vs_forward("serve-zamba", cfg, params, toks, ZAMBA_CHECK["S"])
+    return launches, params
+
+
+@contextlib.contextmanager
+def _ssd_ranges():
+    """Profiler ranges around the SSD scan (``ssd_chunked``) and its
+    one-step form (``ssd_step``), which the Mamba blocks look up at call
+    time; restored on exit."""
+    from torch.profiler import record_function
+    orig = mamba2.ssd_chunked, mamba2.ssd_step
+
+    def ranged(name, fn):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+    mamba2.ssd_chunked = ranged("ssd_chunked", orig[0])
+    mamba2.ssd_step = ranged("ssd_step", orig[1])
+    try:
+        yield
+    finally:
+        mamba2.ssd_chunked, mamba2.ssd_step = orig
+
+
+def phase_profile_zamba(params) -> None:
+    """One full-width zamba2 prefill (B 8, T 1,024) and one decode step of
+    the 8 sessions, on the serve's weights: wall, device time, idle share,
+    the SSD scan's and the flash kernel's shares of the device time."""
+    cfg = get_config("zamba2-1.2b")
+    B, T = ZAMBA_SERVE["sessions"], ZAMBA_SERVE["prompt"]
+    n_apps = len(zamba2.shared_positions(cfg))
+    toks = torch.zeros((B, T), dtype=torch.int32, device=DEV)
+    # the prefill launches ~18k kernels: one traced call (the profiler's
+    # digest of three took a minute)
+    for label, fn, ssd, traced in (
+            (f"zamba2 prefill B={B} T={T} ({n_apps} flash_attention "
+             f"launches)",
+             lambda: model_zoo.prefill(cfg, params, {"tokens": toks}),
+             "ssd_chunked", 1),
+            (f"zamba2 decode step B={B}", None, "ssd_step", 3)):
+        if fn is None:
+            _, cache = model_zoo.prefill(cfg, params, {"tokens": toks})
+            cache = _padded(cfg, cache, ZAMBA_SERVE["pad"])
+            tok = torch.zeros((B,), dtype=torch.int32, device=DEV)
+            pos = torch.full((B,), T, dtype=torch.int32, device=DEV)
+
+            def fn(cache=cache, tok=tok, pos=pos):
+                return model_zoo.decode(cfg, params, cache, tok, pos)
+        _, total, flash, parts = _profile(label, fn, traced=traced,
+                                          focus="flash", labels=(ssd,),
+                                          traced_ctx=_ssd_ranges)
+        log(f"[profile] {label}: SSD scan ({ssd}) {parts[ssd]:.3f} ms, "
+            f"share of device time {parts[ssd] / max(total, 1e-9):.3f}; "
+            f"flash_attention {flash:.3f} ms, share "
+            f"{flash / max(total, 1e-9):.3f}")
+
+
+def phase_serve_whisper():
+    """whisper-tiny at full width in bf16 through model_zoo: 8 sessions of
+    1,500 encoder frames (Whisper's 30 s window after its stride-2
+    convolution; the stub front end's embeddings, seeded normal x 0.01)
+    and a 4-token decoder prompt in one prefill (flash_attention launched
+    exactly 12 times: 4 encoder layers, self- and cross-attention in 4
+    decoder layers), then greedy decode to 64 tokens in a self cache
+    padded to 448 (plain attention: no kernel), every logit finite; then
+    _decode_vs_forward in f32 on the first session's frames."""
+    cfg = get_config("whisper-tiny")
+    S = WHISPER_SERVE
+    B, T = S["sessions"], S["prompt"]
+    t0 = time.monotonic()
+    params = model_zoo.init(cfg, 0, torch.bfloat16, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    frames = (torch.randn((B, S["frames"], cfg.d_model), generator=gen,
+                          device=DEV) * 0.01).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[serve-whisper] whisper-tiny full width (encoder {cfg.n_enc_layers}"
+        f" x decoder {cfg.n_layers} layers, d={cfg.d_model} H={cfg.n_heads} "
+        f"D={cfg.head_dim_} d_ff={cfg.d_ff} V={cfg.vocab_size}; "
+        f"{_param_count(params) / 1e6:.2f} M params counted) bf16: set-up "
+        f"{time.monotonic() - t0:.2f}s")
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
+                              .astype(np.int32)).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+    t0 = time.monotonic()
+    last, cache = model_zoo.prefill(cfg, params, {"tokens": prompt,
+                                                  "frames": frames})
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    _finite(last, "serve-whisper prefill")
+    last, cache, dec = _greedy(cfg, params, last,
+                               _padded(cfg, cache, S["pad"]), S["to"] - T, T)
+    after = {name: k["fn"].launches for name, k in KERNELS.items()}
+    step_ms = float(np.median(dec))
+    log(f"[serve-whisper] on {torch.cuda.get_device_name(0)}: prefill "
+        f"(encoder {B}x{S['frames']} frames + decoder {B}x{T}) "
+        f"{prefill_ms:.2f} ms, decode step median {step_ms:.3f} ms (min "
+        f"{min(dec):.3f}, max {max(dec):.3f}) = {B / step_ms * 1e3:.1f} "
+        f"tokens/s over {B} sessions to {S['to']} tokens; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[serve-whisper] kernel launches in the prefill: {launches}; after "
+        f"{S['to'] - T} decode steps: {after}")
+    if launches["flash_attention"] != _flash_calls(cfg) or after != launches:
+        raise AssertionError("serve-whisper: flash_attention launches != "
+                             f"{_flash_calls(cfg)} in the prefill, or a "
+                             "decode step launched a kernel")
+    for name, n in launches.items():
+        if name not in DENSE_PATH and n:
+            raise AssertionError(f"serve-whisper: {name} ran")
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, sum(WHISPER_CHECK.values()))).astype(
+            np.int32)).to(DEV)
+    _decode_vs_forward("serve-whisper", cfg, params, toks,
+                       WHISPER_CHECK["S"], frames=frames[:1])
+    return launches
 
 
 MOE_SERVE = dict(jobs=8, shared_tokens=1024, tail_chunks=(2, 3, 4, 2),
@@ -2008,22 +2425,29 @@ def device_ms(fn, key: str, iters: int = 50) -> float:
     its wrapper's host cost, CUDA events around a Python loop time the
     host's enqueue instead of the kernel. The trace can miss kernel
     records (on an H100 80GB HBM3 host: one in a 50-call trace as a rule,
-    once most of them), so the time is the mean of the records it holds
-    times the kernels a call launches, not their sum over the calls."""
+    once most of them, once all of them), so the time is the mean of the
+    records it holds times the kernels a call launches, not their sum over
+    the calls, and a trace that holds none is taken again, up to three
+    times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if key in e.key
-           and "CUDA" in str(getattr(e, "device_type", ""))]
-    total = sum(e.device_time_total for e in evs)
-    n = sum(e.count for e in evs)
-    if total <= 0:
-        raise AssertionError(f"no device time for {key} in the trace")
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if key in e.key
+               and "CUDA" in str(getattr(e, "device_type", ""))]
+        total = sum(e.device_time_total for e in evs)
+        n = sum(e.count for e in evs)
+        if total > 0:
+            break
+        log(f"[timing] device_ms({key!r}): no kernel record in the trace "
+            f"of {iters} calls (trace {attempt} of 3)")
+    else:
+        raise AssertionError(f"no device time for {key} in three traces")
     per_call = max(1, round(n / iters))
     if n != per_call * iters:
         log(f"[timing] device_ms({key!r}): {n} kernel records for {iters} "
@@ -2382,6 +2806,60 @@ def phase_flash_timing(errs: Errors):
         "launches_per_chunk": get_config("gemma2-27b").n_layers}
 
 
+# flash_attention at the shapes the zamba2 and whisper paths give it:
+# label -> (B, H, Sq, Skv, D), causal (Hq = Hkv: MHA)
+SSM_FLASH_TIMING = {
+    "whisper cross-attention": ((8, 6, 448, 1500, 64), False),
+    "zamba2 shared block": ((8, 32, 1024, 1024, 64), True)}
+
+
+def phase_flash_ssm_timing(errs: Errors) -> None:
+    """flash_attention in bf16 at whisper's cross-attention (the decoder's
+    448 rows over 1,500 encoder frames, non-causal) and at zamba2's shared
+    block in the prefill (T 1,024, causal, G 1), on model-layout views:
+    CUDA-event and profiler device times against the plain version, SDPA
+    on contiguous copies of the same inputs (held to the plain version
+    too) and the bound. Logged only: the kernels JSON's flash row stays
+    the dense path's chunk."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    for label, ((B, H, Sq, Skv, D), causal) in SSM_FLASH_TIMING.items():
+        q, k, v = _flash_inputs(gen, B, H, H, Sq, Skv, D, torch.bfloat16,
+                                model_layout=True)
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        # keys each row sees: all of them, or (causal, Sq == Skv) 1..Sq
+        pairs = Sq * (Sq + 1) / 2 if causal else Sq * Skv
+        flops = 4.0 * B * H * pairs * D
+        nbytes = 2.0 * B * H * (2 * Sq + 2 * Skv) * D   # q, o; k, v
+        bound, by = _bound(nbytes, flops, BF16_FLOPS)
+
+        def run(q=q, k=k, v=v, causal=causal):
+            return flash_attention(q, k, v, causal=causal)
+
+        def plain(q=q, k=k, v=v, causal=causal):
+            return ref.flash_attention_ref(q, k, v, causal=causal)
+
+        def sdpa(qc=qc, kc=kc, vc=vc, causal=causal):
+            return F.scaled_dot_product_attention(qc, kc, vc,
+                                                  is_causal=causal)
+
+        want = plain()
+        tol = _attn_tol(torch.bfloat16, want)
+        err = errs.check("flash_attention", torch.bfloat16, run(), want, tol,
+                         f"{label} timing inputs")
+        s_err = errs.check("sdpa", "bf16", sdpa(), want, tol, label)
+        k_ms, p_ms, s_ms = time_ms(run), time_ms(plain), time_ms(sdpa)
+        d_ms, sd_ms = device_ms(run, "_mma"), device_ms(sdpa, "")
+        log(f"[timing] flash_attention {label} (B={B} H={H} Sq={Sq} "
+            f"Skv={Skv} D={D} causal={causal}, bf16): kernel {k_ms:.4f} ms "
+            f"(device {d_ms:.4f})  plain {p_ms:.4f} ms  sdpa {s_ms:.4f} ms "
+            f"(device {sd_ms:.4f})  bound {bound:.4f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  bound/kernel "
+            f"device {bound / d_ms:.3f}, sdpa/kernel device "
+            f"{sd_ms / d_ms:.3f}; max abs err vs plain: kernel {err:.3e}, "
+            f"sdpa {s_err:.3e} (tol {tol:.3e})")
+
+
 def _wkv_bound(B, T, H, K, item):
     """r/k/v read once in the model type, w read and o written in f32, u
     read, the state read and written once in f32; about 5*K^2 flops per
@@ -2706,7 +3184,8 @@ def phase_profile_dense(backend) -> None:
 # ---------------------------------------------------------------------------
 
 TRAIN_PARITY = (("llama3.2-1b", 64), ("gemma2-27b", 128),
-                ("granite-moe-3b-a800m", 64), ("rwkv6-1.6b", 64))
+                ("granite-moe-3b-a800m", 64), ("rwkv6-1.6b", 64),
+                ("zamba2-1.2b", 64), ("whisper-tiny", 64))
 # card vs CPU, x each leaf's largest |CPU gradient|: about 9x the worst
 # leaf read on the H100 (PERF.md: 2.14e-6 on the LM families, 2.27e-5 on
 # rwkv6, whose random-init backward grows the gradient ~200x)
@@ -2716,13 +3195,24 @@ GRAD_TOL = 2e-5
 KERNEL_LEAVES = {"lm": ("layers.attn.wq", "layers.attn.wk", "layers.attn.wv"),
                  "rwkv6": ("layers.wr", "layers.wk", "layers.wv",
                            "layers.decay_A", "layers.decay_B",
-                           "layers.w_base", "layers.u")}
+                           "layers.w_base", "layers.u"),
+                 "zamba2": ("shared.attn.wq", "shared.attn.wk",
+                            "shared.attn.wv", "mamba_layers.w_x",
+                            "mamba_layers.w_B", "mamba_layers.w_C",
+                            "mamba_layers.w_dt"),
+                 "whisper": tuple(f"{part}.{w}" for part in (
+                     "enc_layers.attn", "dec_layers.self_attn",
+                     "dec_layers.cross_attn") for w in ("wq", "wk", "wv"))}
 TRAIN_FULL = dict(arch="llama3.2-1b", reduced=False, steps=10, seq_len=1024,
                   batch=8)
 TRAIN_RWKV = dict(arch="rwkv6-1.6b", reduced=False, steps=3, seq_len=512,
                   batch=4)
 TRAIN_BF16 = dict(arch="llama3.2-1b", reduced=False, steps=1, seq_len=1024,
                   batch=8)
+TRAIN_ZAMBA = dict(arch="zamba2-1.2b", reduced=False, steps=3, seq_len=512,
+                   batch=4)
+TRAIN_WHISPER = dict(arch="whisper-tiny", reduced=False, steps=3,
+                     seq_len=448, batch=8)
 TRAIN_RESTART = dict(arch="llama3.2-1b", steps=8, seq_len=64, batch=4)
 
 
@@ -2746,7 +3236,7 @@ def _train_parity(arch: str, S: int) -> dict:
     leaves that reach the loss only through the kernel nonzero on the card
     and matching; the kernel launched during the step."""
     cfg = get_config(arch).reduced()
-    family = "rwkv6" if cfg.family == "rwkv6" else "lm"
+    family = "lm" if cfg.family in ("dense", "moe") else cfg.family
     kernel = "wkv6" if family == "rwkv6" else "flash_attention"
     params = model_zoo.init(cfg, 0, torch.float32, device="cpu")
     dparams = _to_device(params)
@@ -2754,6 +3244,9 @@ def _train_parity(arch: str, S: int) -> dict:
     batch = {k: torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, S))
                                  .astype(np.int32))
              for k in ("tokens", "targets")}
+    if family == "whisper":
+        batch["frames"] = torch.from_numpy((rng.standard_normal(
+            (2, 16, cfg.d_model)) * 0.1).astype(np.float32))
     kw = dict(remat=True, chunked_ce=family == "lm")
     lc, gc_ = train_steps.loss_and_grads(cfg, params, batch, **kw)
     before = _launches(kernel)
@@ -2779,7 +3272,7 @@ def _train_parity(arch: str, S: int) -> dict:
             raise AssertionError(f"train {arch}: {name}'s gradient is zero "
                                  f"on the card: the {kernel} output was "
                                  "detached")
-    if launched < 2 * cfg.n_layers:          # forward + remat recompute
+    if launched < _step_launches(cfg):
         raise AssertionError(f"train {arch}: {kernel} launched {launched} "
                              f"times in the step")
     log(f"[train] {arch} reduced f32 S={S}: loss card {lg.item():.6f} cpu "
@@ -2788,6 +3281,19 @@ def _train_parity(arch: str, S: int) -> dict:
         f"{', '.join(KERNEL_LEAVES[family])} nonzero; {kernel} launched "
         f"{launched} times")
     return {arch: launched}
+
+
+def _step_launches(cfg) -> int:
+    """The least kernel launches of one train step with remat: the forward
+    and the recompute of each checkpointed layer, so every layer twice on
+    the LM families and rwkv6; zamba2's shared block once per application
+    (its Mamba layers are checkpointed, the block is not); whisper's
+    encoder layers once and its decoder layers' two attentions twice."""
+    if cfg.family == "zamba2":
+        return len(zamba2.shared_positions(cfg))
+    if cfg.family == "whisper":
+        return cfg.n_enc_layers + 4 * cfg.n_layers
+    return 2 * cfg.n_layers
 
 
 def _guard_check() -> None:
@@ -2979,10 +3485,11 @@ def _profile_train(params) -> None:
 
 
 def phase_train() -> dict:
-    """Gradients through the kernels (card vs CPU on four reduced
+    """Gradients through the kernels (card vs CPU on six reduced
     families), the grad guard, then the trainer on the card: full-width
     llama3.2-1b (f32, remat, chunked CE) whose loss must fall, full-width
-    rwkv6-1.6b, one full-width bf16 llama step (each kernel of each
+    rwkv6-1.6b, one full-width bf16 llama step, full-width zamba2-1.2b
+    and whisper-tiny (f32, remat, 3 steps each; each kernel of each
     full-width run held against its plain version at the run's first
     call, output and gradients), and a reduced llama run stopped halfway
     and resumed from its checkpoint, loss for loss equal to the
@@ -3022,6 +3529,16 @@ def phase_train() -> dict:
         raise AssertionError("train bf16: flash_attention never launched")
     gc.collect()
     torch.cuda.empty_cache()
+    for run in (TRAIN_ZAMBA, TRAIN_WHISPER):
+        label = (f"{run['arch']} full width f32 B={run['batch']} "
+                 f"S={run['seq_len']}")
+        launched = _train_run(label, chunked_ce=False, **run)[1]
+        if launched["flash_attention"] <= 0:
+            raise AssertionError(f"train {label}: flash_attention never "
+                                 "launched")
+        launches[f"{run['arch']} full width"] = launched["flash_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
     d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                      "train_ckpt")
     shutil.rmtree(d, ignore_errors=True)
@@ -3100,12 +3617,16 @@ def main() -> int:
     phase_model_moe()
     log(f"[model-moe] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
+    phase_model_ssm()
+    log(f"[model-ssm] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
     launches = phase_serve()
     log(f"[serve] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     rows = phase_timing(errs, launches)
     flash_row = phase_flash_timing(errs)
     wkv_row = phase_wkv_timing(errs)
+    phase_flash_ssm_timing(errs)
     log(f"[timing] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     phase_profile()
@@ -3118,7 +3639,24 @@ def main() -> int:
     t0 = time.monotonic()
     phase_profile_rwkv(rwkv_params)
     log(f"[profile-rwkv] done in {time.monotonic() - t0:.2f}s")
-    del rwkv_params                  # free the card for qwen3-coder
+    del rwkv_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    zamba_launches, zamba_params = phase_serve_zamba()
+    log(f"[serve-zamba] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    phase_profile_zamba(zamba_params)
+    log(f"[profile-zamba] done in {time.monotonic() - t0:.2f}s")
+    del zamba_params                 # free the card for qwen3-coder
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    whisper_launches = phase_serve_whisper()
+    log(f"[serve-whisper] done in {time.monotonic() - t0:.2f}s")
+    log(f"[serve-zamba] [serve-whisper] prefill launches (logged apart; the "
+        f"kernels JSON keeps the dense serve's): {zamba_launches}, "
+        f"{whisper_launches}")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.monotonic()

@@ -10,8 +10,9 @@ prefill and decode steps on one device, and the training losses.
 
 The train step runs the forward, the loss, autograd's backward and
 ``adamw_update`` (in place). On the card its forward runs the kernels
-(``flash_attention`` for the dense and moe families, ``wkv6`` for rwkv6)
-and its backward their autograd Functions (``kernels/_grad.py``). The
+(``flash_attention`` for every full-sequence attention of the dense, moe,
+zamba2 and whisper families, ``wkv6`` for rwkv6) and its backward their
+autograd Functions (``kernels/_grad.py``). The
 sharded half of the reference (the ``ShapeDtypeStruct`` stand-ins,
 ``build_cell``, ``perf_opts`` and the parallel context) is not ported.
 """
@@ -88,9 +89,10 @@ def _pad_targets(tgt, length: int):
 def train_loss(cfg: ModelConfig, params, batch: Dict[str, Any], *,
                remat: bool = True, chunked_ce: bool = False):
     """The train step's loss: ``cross_entropy`` of ``model_zoo.forward``
-    against ``batch['targets']``, or, with ``chunked_ce`` on the dense and
-    moe families, ``chunked_cross_entropy`` of ``lm_forward``'s hidden
-    states."""
+    (every family; whisper reads ``batch['frames']``) against
+    ``batch['targets']``, or, with ``chunked_ce`` on the dense and moe
+    families, ``chunked_cross_entropy`` of ``lm_forward``'s hidden states
+    (the other families take the whole logits, as in JAX)."""
     if chunked_ce and cfg.family in ("dense", "moe"):
         hidden = tf.lm_forward(cfg, params, batch["tokens"],
                                embeds=batch.get("embeds"), remat=remat,

@@ -11,8 +11,10 @@ port of ``repro.launch.train``, without a mesh.
         --steps 50 --ckpt /tmp/ckpt [--resume]
 
 On the card the forward runs the Hopper kernels (``flash_attention`` for
-the dense and moe families, ``wkv6`` for rwkv6) and the backward their
-autograd Functions. Without a card, ``device="cuda"`` raises.
+the dense, moe, zamba2 and whisper families, ``wkv6`` for rwkv6) and the
+backward their autograd Functions. Whisper trains on zero frames (B, 16,
+D), as in JAX, and its ``seq_len`` is at most ``max_target_len`` (448).
+Without a card, ``device="cuda"`` raises.
 """
 from __future__ import annotations
 
@@ -66,6 +68,9 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
         toks, tgts = data.next_batch()
         batch_d = {"tokens": torch.from_numpy(toks).to(dev),
                    "targets": torch.from_numpy(tgts).to(dev)}
+        if cfg.family == "whisper":   # the stub front end's frames
+            batch_d["frames"] = torch.zeros(
+                (toks.shape[0], 16, cfg.d_model), dtype=dtype, device=dev)
         if cfg.frontend == "image_patches":
             batch_d["embeds"] = torch.zeros(
                 (toks.shape[0], cfg.n_frontend_tokens, cfg.d_model),

@@ -217,17 +217,20 @@ def attention(q, k, v, q_pos, kv_pos, *, kv_valid=None, causal: bool = True,
 # Attention projections and the attention kernel calls
 # ---------------------------------------------------------------------------
 
-def dense_prefill_attention(q, k, v, *, window: Optional[int],
-                            softcap: Optional[float], q_offset: int):
-    """Causal chunked-prefill attention of one batch whose rows all start
-    at the host-side ``q_offset`` (row ``i`` at ``q_offset + i``).
+def dense_prefill_attention(q, k, v, *, window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            q_offset: int = 0, causal: bool = True):
+    """Full-sequence or chunked-prefill attention of one batch whose rows
+    all start at the host-side ``q_offset`` (row ``i`` at ``q_offset +
+    i``): causal, or with ``causal=False`` every row over every key (an
+    encoder, or a cross-attention with Sq != Skv).
 
     q: (B, Sq, Hq, D) **model layout**; k/v: (B, Skv, Hkv, D), e.g. a
     dense cache slot. Returns (B, Sq, Hq, D). All three reach the flash
     kernel as transposed views: nothing is copied."""
     from repro_torch.kernels import ops            # lazy: keeps layers cheap
     o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      causal=True, window=window, softcap=softcap,
+                      causal=causal, window=window, softcap=softcap,
                       q_offset=q_offset)
     return o.transpose(1, 2)
 

@@ -1,53 +1,47 @@
-"""Family dispatcher: the uniform API of ``repro.models.model_zoo`` over the
-families the port serves and trains so far (``dense``, ``moe`` and
-``rwkv6``).
+"""Family dispatcher: the uniform API of ``repro.models.model_zoo`` over all
+the families of the assigned architectures (``dense``, ``moe``, ``rwkv6``,
+``zamba2`` and ``whisper``).
 
     init(cfg, seed, dtype, device)              -> params
     forward(cfg, params, batch, remat=False)    -> logits   (full sequence)
     prefill(cfg, params, batch)                 -> (last_logits, cache)
     decode(cfg, params, cache, tok, pos)        -> (logits, cache)
-    cache_specs(cfg, batch, max_len, dtype)     -> TensorSpec per cache field
-    cache_zeros(cfg, batch, max_len, dtype, device)
+    cache_specs(cfg, batch, max_len, dtype, enc_len=0)
+                                                -> TensorSpec per cache field
+    cache_zeros(cfg, batch, max_len, dtype, enc_len=0, device)
 
 ``batch`` is a dict with ``'tokens'`` (B, S) and, for the LM families,
 optional ``'embeds'`` (B, N, D): the image-patch front end's stub tokens,
-prepended (rwkv6 ignores them, as in JAX); other entries (``'targets'``)
-are not read. ``'frames'`` (whisper's audio front end) raises
-``NotImplementedError``. These are entry points: the device defaults to
-``"cuda"`` and a run without a card raises; the CPU is asked for by name.
-``forward``/``prefill``/``decode`` run where their tensors lie. The
-``seed`` takes the place of JAX's ``PRNGKey``: torch draws other bits
-from it. The sharding argument ``pctx`` is not ported. The other families
-raise ``NotImplementedError`` naming their ROADMAP item.
+prepended (rwkv6 and zamba2 ignore them, as in JAX); whisper reads
+``'frames'`` (B, T_enc, D), its audio front end's stub frame embeddings,
+and decodes ``'tokens'``. Other entries (``'targets'``) are not read.
+``cache_specs``' ``enc_len`` is whisper's encoder length; 0 takes the
+config's ``n_frontend_tokens``, as in JAX. These are entry points: the
+device defaults to ``"cuda"`` and a run without a card raises; the CPU is
+asked for by name. ``forward``/``prefill``/``decode`` run where their
+tensors lie. The ``seed`` takes the place of JAX's ``PRNGKey``: torch
+draws other bits from it. The sharding argument ``pctx`` is not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
 
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, whisper, zamba2
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import TensorSpec
 
-_TODO = {
-    "zamba2": "zamba2 is not ported yet: ROADMAP.md, 'Modules still to "
-              "port', 'Other families'",
-    "whisper": "whisper is not ported yet: ROADMAP.md, 'Modules still to "
-               "port', 'Other families'",
-}
-
 
 def _family(cfg: ModelConfig) -> str:
     """``"lm"`` for the decoder-only transformers (dense and moe, as in
-    JAX's model_zoo), ``"rwkv6"``; the families still to port raise."""
+    JAX's model_zoo), else the family's own name."""
     if cfg.family in ("dense", "moe"):
         return "lm"
-    if cfg.family == "rwkv6":
+    if cfg.family in ("rwkv6", "zamba2", "whisper"):
         return cfg.family
-    if cfg.family in _TODO:
-        raise NotImplementedError(_TODO[cfg.family])
     raise ValueError(cfg.family)
 
 
@@ -59,11 +53,8 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _tokens(batch: Dict[str, Any]):
-    if "frames" in batch:
-        raise NotImplementedError("batch['frames'] (the audio front end) is "
-                                  "not ported: " + _TODO["whisper"])
-    return batch["tokens"]
+_INIT = {"lm": tf.init_lm, "rwkv6": rwkv6.init_rwkv,
+         "zamba2": zamba2.init_zamba, "whisper": whisper.init_whisper}
 
 
 def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -71,44 +62,68 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     family = _family(cfg)
     dev = _device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    if family == "lm":
-        return tf.init_lm(cfg, gen, dtype, dev)
-    return rwkv6.init_rwkv(cfg, gen, dtype, dev)
+    return _INIT[family](cfg, gen, dtype, dev)
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *,
             remat: bool = False):
-    if _family(cfg) == "lm":
-        return tf.lm_forward(cfg, params, _tokens(batch),
+    family = _family(cfg)
+    if family == "lm":
+        return tf.lm_forward(cfg, params, batch["tokens"],
                              embeds=batch.get("embeds"), remat=remat)
-    return rwkv6.rwkv_forward(cfg, params, _tokens(batch), remat=remat)
+    if family == "rwkv6":
+        return rwkv6.rwkv_forward(cfg, params, batch["tokens"], remat=remat)
+    if family == "zamba2":
+        return zamba2.zamba_forward(cfg, params, batch["tokens"],
+                                    remat=remat)
+    return whisper.whisper_forward(cfg, params, batch["tokens"],
+                                   batch["frames"], remat=remat)
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, Any]):
-    if _family(cfg) == "lm":
-        return tf.lm_prefill(cfg, params, _tokens(batch),
+    family = _family(cfg)
+    if family == "lm":
+        return tf.lm_prefill(cfg, params, batch["tokens"],
                              embeds=batch.get("embeds"))
-    return rwkv6.rwkv_prefill(cfg, params, _tokens(batch))
+    if family == "rwkv6":
+        return rwkv6.rwkv_prefill(cfg, params, batch["tokens"])
+    if family == "zamba2":
+        return zamba2.zamba_prefill(cfg, params, batch["tokens"])
+    return whisper.whisper_prefill(cfg, params, batch["tokens"],
+                                   batch["frames"])
+
+
+_DECODE = {"lm": tf.lm_decode, "rwkv6": rwkv6.rwkv_decode,
+           "zamba2": zamba2.zamba_decode, "whisper": whisper.whisper_decode}
 
 
 def decode(cfg: ModelConfig, params, cache, tokens, positions):
-    if _family(cfg) == "lm":
-        return tf.lm_decode(cfg, params, cache, tokens, positions)
-    return rwkv6.rwkv_decode(cfg, params, cache, tokens, positions)
+    return _DECODE[_family(cfg)](cfg, params, cache, tokens, positions)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16):
-    if _family(cfg) == "lm":
+                dtype=torch.bfloat16, enc_len: int = 0):
+    family = _family(cfg)
+    if family == "lm":
         shp = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
         return tf.KVCache(TensorSpec(shp, dtype), TensorSpec(shp, dtype))
-    return rwkv6.RWKVState.specs(cfg, batch, dtype)
+    if family == "rwkv6":
+        return rwkv6.RWKVState.specs(cfg, batch, dtype)
+    if family == "zamba2":
+        return zamba2.ZambaCache.specs(cfg, batch, max_len, dtype)
+    return whisper.EncDecCache.specs(cfg, batch, max_len,
+                                     enc_len or cfg.n_frontend_tokens, dtype)
+
+
+def _zeros(spec, dev):
+    """Zeros for every ``TensorSpec`` of a (nested) cache of specs."""
+    if isinstance(spec, TensorSpec):
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+    return type(spec)(**{f.name: _zeros(getattr(spec, f.name), dev)
+                         for f in dataclasses.fields(spec)})
 
 
 def cache_zeros(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, device="cuda"):
-    specs = cache_specs(cfg, batch, max_len, dtype)
-    dev = _device(device)
-    fields = {name: torch.zeros(s.shape, dtype=s.dtype, device=dev)
-              for name, s in vars(specs).items()}
-    return type(specs)(**fields)
+                dtype=torch.bfloat16, enc_len: int = 0, device="cuda"):
+    return _zeros(cache_specs(cfg, batch, max_len, dtype, enc_len),
+                  _device(device))

@@ -65,6 +65,32 @@ def _norm_params(cfg: ModelConfig, lead, dim, dtype, device):
     return {"scale": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _attn_params(cfg: ModelConfig, lead, nrm, dtype, device):
+    """An attention block's weights (``init_attn`` of the JAX package),
+    with ``lead`` stacking axes; ``nrm(shape, scale)`` draws."""
+    D = cfg.d_model
+    attn = {"wq": nrm((*lead, D, cfg.q_dim), D ** -0.5),
+            "wk": nrm((*lead, D, cfg.kv_dim), D ** -0.5),
+            "wv": nrm((*lead, D, cfg.kv_dim), D ** -0.5),
+            "wo": nrm((*lead, cfg.q_dim, D), cfg.q_dim ** -0.5)}
+    if cfg.qkv_bias:
+        for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
+                          ("bv", cfg.kv_dim)):
+            attn[name] = torch.zeros((*lead, dim), dtype=dtype,
+                                     device=device)
+    return attn
+
+
+def _mlp_params(cfg: ModelConfig, lead, nrm):
+    """A dense MLP's weights (``init_mlp`` of the JAX package)."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    mlp = {"w_up": nrm((*lead, D, Fd), D ** -0.5),
+           "w_down": nrm((*lead, Fd, D), Fd ** -0.5)}
+    if cfg.gated_mlp:
+        mlp["w_gate"] = nrm((*lead, D, Fd), D ** -0.5)
+    return mlp
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
             dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
     """Random weights with the shapes and scales of
@@ -76,20 +102,12 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not a transformer LM")
     D, L = cfg.d_model, (cfg.n_layers,)
-    Fd = cfg.d_ff
 
     def nrm(shape, scale):
         return _normal(shape, scale, generator, dtype, device)
 
-    attn = {"wq": nrm((*L, D, cfg.q_dim), D ** -0.5),
-            "wk": nrm((*L, D, cfg.kv_dim), D ** -0.5),
-            "wv": nrm((*L, D, cfg.kv_dim), D ** -0.5),
-            "wo": nrm((*L, cfg.q_dim, D), cfg.q_dim ** -0.5)}
-    if cfg.qkv_bias:
-        for name, dim in (("bq", cfg.q_dim), ("bk", cfg.kv_dim),
-                          ("bv", cfg.kv_dim)):
-            attn[name] = torch.zeros((*L, dim), dtype=dtype, device=device)
-    layers = {"ln_attn": _norm_params(cfg, L, D, dtype, device), "attn": attn,
+    layers = {"ln_attn": _norm_params(cfg, L, D, dtype, device),
+              "attn": _attn_params(cfg, L, nrm, dtype, device),
               "ln_mlp": _norm_params(cfg, L, D, dtype, device)}
     if cfg.family == "moe":
         E, Fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
@@ -98,10 +116,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
                          "w_up": nrm((*L, E, D, Fe), D ** -0.5),
                          "w_down": nrm((*L, E, Fe, D), Fe ** -0.5)}
     else:
-        layers["mlp"] = {"w_up": nrm((*L, D, Fd), D ** -0.5),
-                         "w_down": nrm((*L, Fd, D), Fd ** -0.5)}
-        if cfg.gated_mlp:
-            layers["mlp"]["w_gate"] = nrm((*L, D, Fd), D ** -0.5)
+        layers["mlp"] = _mlp_params(cfg, L, nrm)
     if cfg.post_sublayer_norm:
         layers["ln_post_attn"] = _norm_params(cfg, L, D, dtype, device)
         layers["ln_post_mlp"] = _norm_params(cfg, L, D, dtype, device)

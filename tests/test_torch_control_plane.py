@@ -30,6 +30,7 @@ COPIED = sorted(
     for p in (SRC / "repro_torch" / sub).glob("*.py")
     if (SRC / "repro" / p.relative_to(SRC / "repro_torch")).exists()
     and p.name not in ("layers.py", "transformer.py", "rwkv6.py",
+                       "mamba2.py", "zamba2.py", "whisper.py",
                        "model_zoo.py", "optimizer.py"))   # ported, not copied
 
 
@@ -103,6 +104,9 @@ import repro_torch.launch.serve
 import repro_torch.kernels.ops
 import repro_torch.kernels.flash_attention
 import repro_torch.models.transformer
+import repro_torch.models.mamba2
+import repro_torch.models.zamba2
+import repro_torch.models.whisper
 import repro_torch.launch.train
 import repro_torch.distributed.steps
 import repro_torch.distributed.checkpoint

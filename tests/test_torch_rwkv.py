@@ -462,15 +462,6 @@ def test_model_zoo_dispatch_matches_jax(arch):
             assert not zero.any()
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-tiny"])
-def test_model_zoo_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tzoo.init(cfg, 0, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tzoo.cache_specs(cfg, 1, 16)
-
-
 def test_model_zoo_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

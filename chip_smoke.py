@@ -47,13 +47,46 @@ Phases, in order; any failure exits non-zero:
                 dtype, at the serving head dims (64, 128): card with the
                 kernels against card with the plain attention, within
                 3e-2 times the largest magnitude (at least 1), next tokens
-                equal wherever the logit error cannot explain a tie
+                equal wherever the logit error cannot explain a tie. On
+                llama also lm_prefill_paged_gather (the flash_attention
+                kernel through lm_step) against lm_prefill_paged (the
+                paged_flash_attention kernel) on the card over
+                tests/test_paged_runner.py's chunk sequence (a shared
+                prefix page, a ragged final chunk): reduced in f32 within
+                1e-4, full width in bf16 within 3e-2 of the largest
+                magnitude; both kernels must launch
 5. serve        TorchBackend with llama3.2-1b at full width in bf16 (paged
                 layout) under Engine(scheduler="mixed", policy "mars") with
                 real sleep tools: 8 sessions in two shared-prefix families,
                 3 rounds; then the same with every tool yield forced to
                 OFFLOAD. Kernel launch counters are zeroed just before and
-                read just after.
+                read just after. Then, with the same weights, three serves
+                whose launches are zeroed before and read after each
+                (both paged kernels must launch):
+   serve-obs    the MARS run again with the whole obs stack on the bus
+                (Tracer with a MetricsRegistry and the engine probes,
+                DetectorSuite, SloTracker, FlightRecorder under build/):
+                every session's critical-path buckets sum to its e2e
+                within 1%, the SLO tracker scores every session (goodput
+                logged), no incident, the dispatch probe shows mixed
+                calls, the Perfetto export re-reads with one X slice per
+                span carrying sid/plane/kind; the wall logged beside
+                serve's MARS run
+   serve-faults a FaultPlan: admission frozen from the start, then
+                the first decoding session frozen, each window ending at
+                its incident (capped at 20 s) under DetectorConfig(
+                livelock_ticks=64, admission_stall_ticks=64): an
+                admission_stall, a decode_livelock for the frozen sid, the
+                flight-recorder bundle replayed by Tracer.replay, every
+                session finished with its tokens, invariants
+   serve-router two TorchBackend replicas (own weights, 1,024 pages each)
+                behind ClusterRouter, heartbeats with the radix digest:
+                siblings placed by their family's digest get radix hits;
+                replica b crashes (no ticks or heartbeats) with a session
+                in a tool, the router fails it after 1 s and re-places
+                its sessions on a, which prefills them again; every
+                session finishes with its tokens, invariants hold on both
+                engines, HealthReport says critical (a dead replica)
 6. timing       each kernel, its plain version and one PyTorch library call
                 (SDPA; flex_attention, compiled, for the softcapped
                 flash_attention; none computes wkv6) on the same main-path
@@ -200,9 +233,12 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import events as ev  # noqa: E402
 from repro_torch.core.events import EventBus  # noqa: E402
 from repro_torch.core.policies import KVAction  # noqa: E402
-from repro_torch.core.session import Round, make_session  # noqa: E402
+from repro_torch.core.session import Phase, Round, make_session  # noqa: E402
+from repro_torch.distributed.router import (  # noqa: E402
+    ClusterRouter, RouterConfig)
 from repro_torch.engine.api import ChatRequest, ServingAPI  # noqa: E402
 from repro_torch.engine.engine import Engine, EngineConfig, run_live  # noqa: E402
+from repro_torch.engine.faults import Fault, FaultPlan  # noqa: E402
 from repro_torch.engine.tools import RealToolExecutor  # noqa: E402
 from repro_torch.engine.torch_runner import TorchBackend  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
@@ -213,8 +249,14 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention  # noqa: E402
 from repro_torch.kernels.wkv6 import _WKV6, wkv6  # noqa: E402
+from repro_torch.kvcache.radix import estimate_digest_match  # noqa: E402
 from repro_torch.distributed import steps as train_steps  # noqa: E402
+from repro_torch.launch.serve import run_cluster_live  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.obs import (  # noqa: E402
+    PLANES, DetectorConfig, DetectorSuite, FlightRecorder, HealthReport,
+    MetricsRegistry, SloTracker, Tracer, bind_engine_probes,
+    export_perfetto, load_events_jsonl)
 from repro_torch.train.optimizer import init_opt  # noqa: E402
 from repro_torch.models import mamba2, model_zoo, zamba2  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
@@ -267,6 +309,15 @@ DENSE_PATH = ("flash_attention",)
 RWKV_PATH = ("wkv6",)
 DEV = torch.device("cuda")
 QWEN3 = qwen3_coder_30b.CONFIG   # the paper's model; no assigned arch
+
+
+def _zero_launches() -> None:
+    for k in KERNELS.values():
+        k["fn"].launches = 0
+
+
+def _launch_counts() -> dict:
+    return {name: k["fn"].launches for name, k in KERNELS.items()}
 
 
 def log(msg: str) -> None:
@@ -1151,11 +1202,114 @@ class _ModelParity:
             f"{self.flipped} of {self.tokens} real tokens in some layer")
 
 
+def gather_chunks(vocab, scratch, Np, page, rng):
+    """The chunk sequence of tests/test_paged_runner.py's
+    ``test_lm_prefill_paged_bitwise_matches_gather``: three full chunks of
+    sequence A, a sequence B sharing A's first two pages, a sequence C
+    whose final chunk is ragged (16 real lanes of 32, the rest parked on
+    the scratch page). Tokens are drawn from ``rng`` in [1, vocab). Yields
+    (n_real, toks, pos, table, wp, wo, kv_len) as numpy; the CPU tests
+    use it too."""
+    lane = 32
+    table_a, table_b = [0, 1, 2, scratch], [0, 1, 4, scratch]
+    table_c = [5, 6, scratch, scratch]
+    i = np.arange(lane)
+    for start, n_real, table in ((0, 32, table_a), (32, 32, table_a),
+                                 (64, 32, table_a), (64, 32, table_b),
+                                 (0, 32, table_c), (32, 16, table_c)):
+        toks = np.zeros(lane, np.int32)
+        toks[:n_real] = rng.integers(1, vocab, n_real)
+        pos = np.arange(start, start + lane, dtype=np.int32)
+        pos[n_real:] = Np * page - 1
+        table = np.asarray(table, np.int32)
+        wp = np.where(i < n_real, table[np.minimum((start + i) // page,
+                                                   Np - 1)],
+                      scratch).astype(np.int32)
+        wo = np.where(i < n_real, (start + i) % page,
+                      i % page).astype(np.int32)
+        yield (n_real, toks[None], pos[None], table, wp, wo,
+               np.int32(start + n_real))
+
+
+def _prefill_gather_check(cfg, dtype) -> None:
+    """``lm_prefill_paged_gather`` (the dense view through ``lm_step``:
+    the flash_attention kernel) against ``lm_prefill_paged`` (the
+    paged_flash_attention kernel) on the card, same weights and pool,
+    over ``gather_chunks``. Both kernels share the ``attn_mma.cuh`` core,
+    so each side is also held against a third run of the paged prefill
+    under ``_plain_attention`` (no kernel launched). Real-row logits and
+    non-scratch pages within MODEL_TOL in f32, BF16_MODEL_TOL times the
+    largest magnitude in bf16. Both kernels must launch."""
+    bf16 = dtype == torch.bfloat16
+    params = tf.init_lm(cfg, torch.Generator(device=DEV).manual_seed(0),
+                        dtype, DEV)
+    page, P, Np = 32, 8, 4
+    scratch = P - 1
+    rng = np.random.default_rng(17)
+    shp = (cfg.n_layers, P, page, cfg.n_kv_heads, cfg.head_dim_)
+    k0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
+    v0 = torch.from_numpy(rng.standard_normal(shp, np.float32) * 0.5)
+    gather = tf.PagedKVCache(k0.to(DEV, dtype), v0.to(DEV, dtype))
+    paged = tf.PagedKVCache(k0.to(DEV, dtype), v0.to(DEV, dtype))
+    plain = tf.PagedKVCache(k0.to(DEV, dtype), v0.to(DEV, dtype))
+    live = [p for p in range(P) if p != scratch]
+    worst = {"logits": 0.0, "pages": 0.0, "plain logits": 0.0,
+             "plain pages": 0.0}
+    share = {}                  # the largest err / tol of each comparison
+
+    def agree(got, want, what):
+        err = (got.float() - want.float()).abs().max().item()
+        tol = BF16_MODEL_TOL * max(1.0, want.float().abs().max().item()) \
+            if bf16 else MODEL_TOL
+        worst[what] = max(worst[what], err)
+        share[what] = max(share.get(what, 0.0), err / tol)
+        if not err <= tol:
+            raise AssertionError(f"prefill gather {cfg.name} {dtype} {what}: "
+                                 f"max abs err {err} > {tol}")
+
+    _zero_launches()
+    for n, *arrays, kv in gather_chunks(cfg.vocab_size, scratch, Np, page,
+                                        rng):
+        args = [torch.from_numpy(a).to(DEV) for a in arrays]
+        lg, gather = tf.lm_prefill_paged_gather(cfg, params, gather, *args)
+        kv = torch.tensor(kv, device=DEV)
+        ln, paged = tf.lm_prefill_paged(cfg, params, paged, *args, kv)
+        before = _launch_counts()
+        with _plain_attention():
+            lp, plain = tf.lm_prefill_paged(cfg, params, plain, *args, kv)
+        if _launch_counts() != before:
+            raise AssertionError("prefill gather check: the plain side "
+                                 "launched a kernel")
+        agree(ln[:, :n], lg[:, :n], "logits")
+        agree(paged.k[:, live], gather.k[:, live], "pages")
+        agree(paged.v[:, live], gather.v[:, live], "pages")
+        for got, pool in ((lg, gather), (ln, paged)):
+            agree(got[:, :n], lp[:, :n], "plain logits")
+            agree(pool.k[:, live], plain.k[:, live], "plain pages")
+            agree(pool.v[:, live], plain.v[:, live], "plain pages")
+    torch.cuda.synchronize()
+    launches = {name: _launches(name) for name in
+                ("flash_attention", "paged_flash_attention")}
+    log(f"[model] prefill gather vs paged, {cfg.name} {dtype}: logits "
+        f"{worst['logits']:.3e}, pages {worst['pages']:.3e}; either vs "
+        f"plain attention: logits {worst['plain logits']:.3e}, pages "
+        f"{worst['plain pages']:.3e}; largest share of the tolerance "
+        f"{ {k: round(v, 4) for k, v in share.items()} }; launches "
+        f"{launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"prefill gather check: {name} never "
+                                 f"launched")
+
+
 def phase_model(dtype=torch.float32, cfg=None) -> None:
     """llama3.2-1b .reduced() on the paged pool (see _ModelParity); in
     bf16 at the serving instances' head dim and group (D 64, G 4). With
     ``cfg`` (a reduced MoE config, f32) the same calls on that model, its
-    routes and capacity slots held equal."""
+    routes and capacity slots held equal. On llama, then the gather
+    baseline against the paged prefill (_prefill_gather_check): the
+    reduced config in f32, the full width in bf16."""
+    llama = cfg is None
     if cfg is None:
         over = dict(head_dim=64, n_heads=8) if dtype == torch.bfloat16 \
             else {}
@@ -1241,6 +1395,9 @@ def phase_model(dtype=torch.float32, cfg=None) -> None:
         mp.same(dg[:3], dc[:3], "mixed decode")
     pools("mixed")
     mp.done()
+    if llama:
+        _prefill_gather_check(
+            get_config("llama3.2-1b") if mp.bf16 else cfg, dtype)
 
 
 def phase_model_dense(dtype=torch.float32, cfg=None) -> None:
@@ -1587,16 +1744,21 @@ def _sessions(run: int):
     return out
 
 
-def _serve(backend, sessions, ecfg, *, force_offload: bool):
+def _serve(backend, sessions, ecfg, *, force_offload: bool, install=None,
+           label=None):
     """One Engine run over ``sessions`` under MARS with real tools; checks
     that every session finished with the right number of in-vocabulary
-    tokens and, under forced offload, that a host swap-out happened."""
+    tokens and, under forced offload, that a host swap-out happened.
+    ``install(eng)`` runs before the first tick (the obs and fault
+    phases' hooks). Returns (engine, wall seconds)."""
     bus = EventBus()
     tools = RealToolExecutor(cpu_slots=4, bus=bus)
     eng = Engine(EngineConfig(**ecfg), "mars", backend, bus=bus,
                  tool_exec=tools)
     if force_offload:
         eng.policy.on_tool_yield = lambda s, now: (KVAction.OFFLOAD, 0.0)
+    if install is not None:
+        install(eng)
     try:
         t0 = time.monotonic()
         finished, horizon = run_live(eng, sessions, timeout=300)
@@ -1604,7 +1766,7 @@ def _serve(backend, sessions, ecfg, *, force_offload: bool):
     finally:
         tools.shutdown()
     eng.check_invariants()
-    label = "offload" if force_offload else "mars"
+    label = label or ("offload" if force_offload else "mars")
     if len(finished) != len(sessions):
         raise AssertionError(f"serve[{label}]: {len(finished)} of "
                              f"{len(sessions)} sessions finished")
@@ -1623,20 +1785,24 @@ def _serve(backend, sessions, ecfg, *, force_offload: bool):
         f"host swap-outs={len(outs)}, cow={eng.blocks.cow_count}")
     if force_offload and not outs:
         raise AssertionError("serve[offload]: no host SWAP_OUT")
-    return eng
+    return eng, wall
 
 
-def _serve_paged(backend, run: int, *, force_offload: bool):
-    label = "offload" if force_offload else "mars"
-    eng = _serve(backend, _sessions(run),
-                 dict(total_kv_blocks=SERVE["total_pages"], block_size=32,
-                      token_budget=512, max_decode_batch=8, cpu_slots=4,
-                      scheduler="mixed"), force_offload=force_offload)
+def _serve_paged(backend, run: int, *, force_offload: bool, install=None,
+                 label=None):
+    label = label or ("offload" if force_offload else "mars")
+    eng, wall = _serve(backend, _sessions(run),
+                       dict(total_kv_blocks=SERVE["total_pages"],
+                            block_size=32, token_budget=512,
+                            max_decode_batch=8, cpu_slots=4,
+                            scheduler="mixed"),
+                       force_offload=force_offload, install=install,
+                       label=label)
     if eng.prefix_hit_tokens <= 0:
         raise AssertionError(f"serve[{label}]: no prefix hits")
     if eng.blocks.cow_count <= 0:
         raise AssertionError(f"serve[{label}]: no copy-on-write ran")
-    return eng
+    return eng, wall
 
 
 def phase_serve():
@@ -1651,14 +1817,13 @@ def phase_serve():
         f"{SERVE['total_pages']} pages: set-up {time.monotonic() - t0:.2f}s, "
         f"prefill {1.0 / backend.prefill_rate() * 1e6:.1f} us/token "
         f"(calibrated)")
-    for k in KERNELS.values():
-        k["fn"].launches = 0
+    _zero_launches()
     try:
-        _serve_paged(backend, 0, force_offload=False)
-        eng = _serve_paged(backend, 1, force_offload=True)
+        _, mars_wall = _serve_paged(backend, 0, force_offload=False)
+        eng, _ = _serve_paged(backend, 1, force_offload=True)
     finally:
         backend.close()
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = _launch_counts()
     st = backend.dispatch_stats
     if st["mixed_calls"] <= 0:
         raise AssertionError("serve: no mixed iteration ran")
@@ -1672,6 +1837,383 @@ def phase_serve():
         if launches[name] <= 0:
             raise AssertionError(f"serve: {name} never launched")
     del eng
+    return launches, backend.params, mars_wall
+
+
+# ---------------------------------------------------------------------------
+# 5b. the observability plane, fault injection and the cluster router on
+#     the live serve (full-width llama3.2-1b, bf16, paged)
+# ---------------------------------------------------------------------------
+
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+PARTITION_REL = 0.01     # tests/test_obs.py's bar for a sim run's buckets
+# tick thresholds a fault window can pass on the live clock (run_live
+# idles 5 ms a tick; a full-width mixed tick takes ~70 ms), multiples of
+# the detectors' scan stride of 8
+FAULT_DETECT = dict(livelock_ticks=64, admission_stall_ticks=64)
+FAULT_CAP_S = 20.0       # a fault window ends at its incident, or here
+ROUTER_SERVE = dict(pages=1024)
+# the router's straggler penalty, (tick-seconds EMA / median - 1) capped:
+# at the default cap of 2.0 a replica in a long prefill tick scores up to
+# 1.0 worse than an idle one and the family bonus (0.5 x the digest
+# match) loses: a sibling can go to the replica without its family.
+# RouterConfig says the penalty should break ties, not drown affinity;
+# 0.25 keeps it under both affinity bonuses (0.35, 0.5 x >= 0.86)
+ROUTER_CONFIG = dict(heartbeat_timeout=1.0, straggler_penalty_cap=0.25)
+
+
+def _require_paged(label: str, launches: dict) -> None:
+    log(f"[{label}] kernel launches: {launches}")
+    for name in MAIN_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} never launched")
+
+
+def _llama_backend(params, pages: int = SERVE["total_pages"]):
+    return TorchBackend(get_config("llama3.2-1b"), params=params,
+                        device="cuda", dtype=torch.bfloat16,
+                        total_pages=pages, page_size=32, max_slots=8)
+
+
+def phase_serve_obs(params, mars_wall: float) -> dict:
+    """phase_serve's MARS run (seed 0) with the whole obs stack on the
+    engine's bus: critical-path tracer with a metrics registry and the
+    engine probes, detectors, SLO tracker and flight recorder."""
+    backend = _llama_backend(params)
+    reg = MetricsRegistry()
+    out = os.path.join(BUILD, "flight", "obs")
+    shutil.rmtree(out, ignore_errors=True)
+    stack = {}
+
+    def install(eng):
+        stack["tracer"] = Tracer.install(eng, metrics=reg)
+        bind_engine_probes(reg, eng)
+        stack["detect"] = DetectorSuite.install(eng, metrics=reg)
+        stack["slo"] = SloTracker.install(eng, metrics=reg)
+        stack["rec"] = FlightRecorder.install(eng, out)
+
+    _zero_launches()
+    try:
+        eng, wall = _serve_paged(backend, 0, force_offload=False,
+                                 install=install, label="obs")
+    finally:
+        backend.close()
+    launches = _launch_counts()
+    tr, detect, slo = stack["tracer"], stack["detect"], stack["slo"]
+    sids = tr.finished_sids()
+    if sorted(sids) != sorted(s.sid for s in eng.finished):
+        raise AssertionError(f"serve-obs: traced {sids}")
+    worst = 0.0
+    for sid in sids:
+        cp = tr.critical_path(sid)
+        rel = abs(sum(cp["buckets"].values()) - cp["e2e"]) / cp["e2e"]
+        worst = max(worst, rel)
+        if not rel <= PARTITION_REL or min(cp["buckets"].values()) < 0:
+            raise AssertionError(f"serve-obs sid={sid}: buckets "
+                                 f"{cp['buckets']} against e2e {cp['e2e']}")
+    agg = tr.aggregate()
+    log(f"[serve-obs] {len(sids)} sessions; buckets sum to e2e within "
+        f"{worst:.3e} (limit {PARTITION_REL}); per plane (s) "
+        f"{ {k: round(v, 4) for k, v in agg['buckets'].items()} }, "
+        f"shares {json.dumps({k: round(v, 4) for k, v in agg['bucket_frac'].items()})}")
+    rep = slo.report()
+    scored = sum(c["sessions"] for c in rep["classes"].values())
+    fin = sum(c["finished"] for c in rep["classes"].values())
+    if scored != len(eng.finished) or fin != scored:
+        raise AssertionError(f"serve-obs: SLO tracker scored {scored}, "
+                             f"finished {fin}")
+    log("[serve-obs] goodput " + json.dumps(
+        {name: {k: c[k] for k in ("sessions", "good", "goodput_frac",
+                                  "goodput_rps", "violations")}
+         for name, c in rep["classes"].items()}))
+    if detect.count():
+        raise AssertionError(f"serve-obs: incidents on a clean run: "
+                             f"{detect.incidents}")
+    snap = reg.snapshot()
+    if snap["dispatch"]["mixed_calls"] <= 0:
+        raise AssertionError("serve-obs: no mixed call in the dispatch probe")
+    log(f"[serve-obs] dispatch probe (host seconds) " + json.dumps(
+        {k: (round(v, 6) if isinstance(v, float) else v)
+         for k, v in snap["dispatch"].items()}))
+    log(f"[serve-obs] swap_stream probe {json.dumps(snap['swap_stream'])}")
+    path = os.path.join(BUILD, "serve_obs_perfetto.json")
+    export_perfetto(tr, path)
+    with open(path) as f:
+        doc = json.load(f)
+    slices = [e for e in doc["traceEvents"]
+              if e.get("ph") == "X" and "sid" in e.get("args", {})]
+    want = sum(len(tr.sessions[sid].segments) for sid in sids)
+    bad = [e for e in slices if e["args"].get("plane") not in PLANES
+           or not e["args"].get("kind")]
+    if len(slices) != want or bad:
+        raise AssertionError(f"serve-obs: Perfetto holds {len(slices)} "
+                             f"session slices for {want} spans, {len(bad)} "
+                             f"without plane or kind")
+    log(f"[serve-obs] Perfetto trace {os.path.getsize(path)} bytes, "
+        f"{len(doc['traceEvents'])} events, {len(slices)} session slices")
+    log(f"[serve-obs] wall {wall:.3f}s with the obs stack against "
+        f"{mars_wall:.3f}s for serve's MARS run of the same seed "
+        f"({wall / mars_wall:.3f}x; logged, not gated)")
+    _require_paged("serve-obs", launches)
+    return launches
+
+
+def phase_serve_faults(params) -> dict:
+    """The same scenario (seed 2) under a FaultPlan: admission frozen from
+    the start, then the first session to decode frozen; each window ends
+    at its incident (or at FAULT_CAP_S). stuck_tool bites only in the
+    simulated tool executor, as in the reference; its check is on the CPU
+    (tests/test_torch_slo_incidents.py)."""
+    backend = _llama_backend(params)
+    out = os.path.join(BUILD, "flight", "faults")
+    shutil.rmtree(out, ignore_errors=True)
+    plan = FaultPlan([Fault(kind="freeze_decode", at_s=0.0,
+                            until_s=FAULT_CAP_S),
+                      Fault(kind="frozen_admission", at_s=0.0,
+                            until_s=FAULT_CAP_S)])
+    stack = {}
+
+    def close_window(e):
+        kind = {"decode_livelock": "freeze_decode",
+                "admission_stall": "frozen_admission"}.get(e.data["kind"])
+        for f in plan.faults:
+            if f.kind == kind and f.until_s > e.t:
+                f.until_s = e.t
+                log(f"[serve-faults] {e.data['kind']} sid={e.sid} at "
+                    f"{e.t:.3f}s: {f.kind} window closed "
+                    f"{json.dumps(e.data['evidence'])}")
+
+    def install(eng):
+        stack["detect"] = DetectorSuite.install(
+            eng, config=DetectorConfig(**FAULT_DETECT))
+        stack["rec"] = FlightRecorder.install(eng, out)
+        eng.bus.subscribe(ev.INCIDENT, close_window)
+        plan.install(eng)
+
+    log(f"[serve-faults] DetectorConfig {FAULT_DETECT}, windows capped at "
+        f"{FAULT_CAP_S}s")
+    _zero_launches()
+    try:
+        eng, wall = _serve_paged(backend, 2, force_offload=False,
+                                 install=install, label="faults")
+    finally:
+        backend.close()
+    launches = _launch_counts()
+    detect, rec = stack["detect"], stack["rec"]
+    log(f"[serve-faults] plan {json.dumps(plan.summary())}; incidents "
+        f"{[(i['kind'], i['sid'], round(i['t'], 3)) for i in detect.incidents]}")
+    # the frozen sid, from the incident: the plan freezes one session, so
+    # one sid stalls, and it alone took no decode step between its last
+    # one before the incident and the incident while others decoded
+    livelocks = [i for i in detect.incidents
+                 if i["kind"] == "decode_livelock"]
+    if len({i["sid"] for i in livelocks}) != 1 or not next(
+            f for f in plan.summary() if f["kind"] == "freeze_decode")["hits"]:
+        raise AssertionError(f"serve-faults: decode_livelock incidents "
+                             f"{livelocks} for one frozen session expected")
+    frozen, t_inc = livelocks[0]["sid"], livelocks[0]["t"]
+    steps = [(e.t, e.sid) for e in eng.bus.of_kind(ev.DECODE_STEP)
+             if e.t <= t_inc]
+    last = max((t for t, sid in steps if sid == frozen), default=None)
+    others = sum(1 for t, sid in steps if sid != frozen and last is not None
+                 and t > last)
+    log(f"[serve-faults] frozen sid {frozen}: last decode step at {last}, "
+        f"{others} decode steps of other sessions before its incident at "
+        f"{t_inc:.3f}s")
+    if last is None or not others:
+        raise AssertionError(f"serve-faults: sid {frozen} was not stalled "
+                             f"alone (last step {last}, others {others})")
+    if not detect.count("admission_stall"):
+        raise AssertionError("serve-faults: no admission_stall while "
+                             "admission was frozen")
+    bundle = next((b for b in rec.bundles
+                   if b.endswith("decode_livelock")), None)
+    if bundle is None:
+        raise AssertionError(f"serve-faults: no decode_livelock bundle in "
+                             f"{rec.bundles}")
+    events = load_events_jsonl(os.path.join(bundle, "events.jsonl"))
+    replay = Tracer.replay(events)
+    if frozen not in replay.sessions or not any(
+            e.kind == ev.INCIDENT for e in events):
+        raise AssertionError(f"serve-faults: bundle {bundle} does not "
+                             f"replay the frozen session")
+    with open(os.path.join(bundle, "incident.json")) as f:
+        inc = json.load(f)
+    log(f"[serve-faults] bundle {os.path.basename(bundle)}: {len(events)} "
+        f"events replayed, critical path of sid {frozen} "
+        f"{json.dumps(inc['critical_path'] and inc['critical_path']['buckets'])}")
+    log(f"[serve-faults] every session finished after the windows in "
+        f"{wall:.3f}s wall")
+    _require_paged("serve-faults", launches)
+    return launches
+
+
+def _count_launches(backend, into: dict):
+    """Attribute the kernels' launches to ``backend``: its run_batch adds
+    the counters' growth over each call to ``into``."""
+    run = backend.run_batch
+
+    def counted(work, now):
+        before = _launch_counts()
+        try:
+            return run(work, now)
+        finally:
+            for name, n in _launch_counts().items():
+                into[name] = into.get(name, 0) + n - before[name]
+    backend.run_batch = counted
+
+
+def phase_serve_router(params) -> dict:
+    """Two TorchBackend replicas on the card (each with its own weights,
+    ROUTER_SERVE's pages) behind ClusterRouter, heartbeats every round
+    carrying KV utilisation and the radix digest; the two-family sessions
+    of serve (seed 3). Replica b stops ticking and beating (a crash) once
+    every session has been placed, every one that arrived when a digest
+    covered its family's shared prefix has attached to the family's pages,
+    and a session of b is in a tool; the router fails it after
+    heartbeat_timeout and re-places its sessions on a, where they resume
+    by prefix recompute."""
+    router = ClusterRouter(RouterConfig(**ROUTER_CONFIG))
+    log(f"[serve-router] RouterConfig {ROUTER_CONFIG}")
+    weights = {"a": params, "b": _tree_map(lambda t: t.clone(), params)}
+    backends, engines, tools, per_replica = {}, {}, [], {}
+    state = {"crashed": None}
+    sessions = _sessions(3)
+    try:
+        for rid in ("a", "b"):
+            backends[rid] = _llama_backend(weights[rid],
+                                           ROUTER_SERVE["pages"])
+            per_replica[rid] = {}
+            _count_launches(backends[rid], per_replica[rid])
+            bus = EventBus()
+            tools.append(RealToolExecutor(cpu_slots=4, bus=bus))
+            engines[rid] = Engine(EngineConfig(
+                total_kv_blocks=ROUTER_SERVE["pages"], block_size=32,
+                token_budget=512, max_decode_batch=8, cpu_slots=4,
+                scheduler="mixed"), "mars", backends[rid], bus=bus,
+                tool_exec=tools[-1])
+            router.register(rid, engines[rid], now=0.0)
+        both = dict(engines)
+        detectors = {rid: DetectorSuite.install(e)
+                     for rid, e in both.items()}
+        # each session's first home, each replica's digest match (blocks)
+        # when it arrived, and its first radix hit; a replica whose digest
+        # covers the whole shared prefix has its family's builder indexed
+        full = SERVE["shared_tokens"] // 32
+        home, matches, loads, first_hit = {}, {}, {}, {}
+        for rid, eng in both.items():
+            eng.bus.subscribe(ev.SUBMIT, lambda x, rid=rid:
+                              home.setdefault(x.sid, rid))
+            eng.bus.subscribe(ev.PREFIX_HIT, lambda x, rid=rid:
+                              first_hit.setdefault(x.sid, (rid, x.t)))
+
+        def holders(sid):
+            return sorted(rid for rid, m in matches[sid].items()
+                          if m >= full)
+
+        def on_round(now):
+            # placement follows this call within the round, on the digests
+            # of the last heartbeats: the ones read here
+            for s in sessions:
+                if s.sid not in matches and s.arrival_time <= now:
+                    matches[s.sid] = {
+                        rid: estimate_digest_match(r.radix_digest,
+                                                   s.meta["prefix_hashes"])
+                        for rid, r in router.replicas.items() if r.alive}
+                    loads[s.sid] = {
+                        rid: (round(r.kv_utilization, 4), r.tool_backlog,
+                              r.active_sessions,
+                              round(r.step_latency_ema, 4))
+                        for rid, r in router.replicas.items() if r.alive}
+            b = engines.get("b")
+            if b is None or len(home) < len(sessions) or any(
+                    holders(sid) and sid not in first_hit
+                    for sid in matches) or not any(
+                    s.phase == Phase.TOOL for s in b.active):
+                return
+            state["crashed"] = (now, {s.sid: (s.phase.value, s.decoded)
+                                      for s in b.waiting + b.active})
+            log(f"[serve-router] replica b crashes at {now:.3f}s holding "
+                f"{state['crashed'][1]}")
+            del engines["b"]
+
+        _zero_launches()
+        finished, wall = run_cluster_live(router, engines, sessions,
+                                          timeout=300, on_round=on_round)
+        launches = _launch_counts()
+        for e in both.values():
+            e.check_invariants()
+    finally:
+        for t in tools:
+            t.shutdown()
+        for b in backends.values():
+            b.close()
+    firsts = {sid: (home.get(sid), matches[sid], first_hit.get(sid))
+              for sid in sorted(matches)}
+    log(f"[serve-router] first placements (replica, digest match in blocks "
+        f"by replica at arrival, first radix hit); the shared prefix is "
+        f"{full} blocks: {firsts}")
+    log(f"[serve-router] replica state at each arrival (kv utilisation, "
+        f"tool backlog, active sessions, tick-seconds EMA): {loads}")
+    # family co-location: every session that arrived after its family's
+    # builder was indexed (a digest covering the shared prefix) went to a
+    # replica holding it, and attached to the family's pages there before
+    # the crash
+    t_crash, held = state["crashed"] or (float("inf"), {})
+    pulled = [sid for sid in matches if holders(sid)]
+    if not pulled:
+        raise AssertionError("serve-router: no family indexed in a digest")
+    for sid in pulled:
+        hit = first_hit.get(sid)
+        if home[sid] not in holders(sid) or hit is None or \
+                hit[0] != home[sid] or hit[1] > t_crash:
+            raise AssertionError(
+                f"serve-router sid={sid}: family indexed on "
+                f"{holders(sid)}, placed on {home[sid]}, first radix hit "
+                f"{hit}")
+    if state["crashed"] is None:
+        raise AssertionError("serve-router: replica b never crashed")
+    if "tool" not in {p for p, _ in held.values()}:
+        raise AssertionError("serve-router: no session in a tool at the crash")
+    failed = [e for e in router.events if e["ev"] == "failed"]
+    if [e["rid"] for e in failed] != ["b"]:
+        raise AssertionError(f"serve-router: router events {router.events}")
+    by_sid = {s.sid: s for s in sessions}
+    V = get_config("llama3.2-1b").vocab_size
+    if sorted(s.sid for s in finished) != sorted(by_sid):
+        raise AssertionError(f"serve-router: {len(finished)} of "
+                             f"{len(sessions)} sessions finished")
+    for s in finished:
+        gen = s.meta.get("generated", [])
+        if len(gen) != sum(r.decode_tokens for r in s.rounds) or \
+                not all(0 <= t < V for t in gen):
+            raise AssertionError(f"serve-router sid={s.sid}: "
+                                 f"{len(gen)} tokens")
+    moved = [sid for sid in held if router.session_home[sid] == "a"]
+    if sorted(moved) != sorted(held):
+        raise AssertionError(f"serve-router: {held} not all re-placed on a")
+    # the resume on a: each moved session prefilled its context again
+    rec = {sid: sum(e.data.get("tokens", 0)
+                    for e in both["a"].bus.of_kind(ev.PREFILL_CHUNK)
+                    if e.sid == sid and e.t >= t_crash) for sid in held}
+    log(f"[serve-router] tokens prefilled again on a after the crash "
+        f"{rec}")
+    if not all(rec.values()):
+        raise AssertionError(f"serve-router: no recompute on a: {rec}")
+    health = HealthReport.collect(router, detectors=detectors)
+    log(f"[serve-router] after failover: requeued {len(held)} sessions to "
+        f"a, all {len(finished)} finished in {wall:.3f}s; router stats "
+        f"{json.dumps(router.stats())}")
+    log(f"[serve-router] cluster_prefix_stats "
+        f"{json.dumps(router.cluster_prefix_stats())}")
+    log(f"[serve-router] health {health.status}:\n{health.render()}")
+    if health.status != "critical":        # a dead replica: critical
+        raise AssertionError(f"serve-router: health {health.status}")
+    log(f"[serve-router] per-replica launches {json.dumps(per_replica)}")
+    for rid in ("a", "b"):
+        _require_paged(f"serve-router:{rid}", {
+            name: per_replica[rid].get(name, 0) for name in KERNELS})
+    _require_paged("serve-router", launches)
     return launches
 
 
@@ -1723,8 +2265,7 @@ def phase_serve_rwkv():
         f" set-up {time.monotonic() - t0:.2f}s, device memory "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS.values():
-        k["fn"].launches = 0
+    _zero_launches()
     t0 = time.monotonic()
     last, state = model_zoo.prefill(cfg, params, {"tokens": prompts})
     torch.cuda.synchronize()
@@ -1739,7 +2280,7 @@ def phase_serve_rwkv():
     _finite(logits, "serve-rwkv resume")
     last, state, dec2 = _greedy(cfg, params, logits[:, -1], state, n_dec,
                                 T + n_dec + S["tool"])
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = _launch_counts()
     calls = 2 + 2 * n_dec
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median(dec + dec2))
@@ -1995,17 +2536,16 @@ def phase_serve_zamba():
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
                                .astype(np.int32)).to(DEV)
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS.values():
-        k["fn"].launches = 0
+    _zero_launches()
     t0 = time.monotonic()
     last, cache = model_zoo.prefill(cfg, params, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_ms = (time.monotonic() - t0) * 1e3
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = _launch_counts()
     _finite(last, "serve-zamba prefill")
     last, cache, dec = _greedy(cfg, params, last,
                                _padded(cfg, cache, S["pad"]), n_dec, T)
-    after = {name: k["fn"].launches for name, k in KERNELS.items()}
+    after = _launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_ms = float(np.median(dec))
     log(f"[serve-zamba] on {torch.cuda.get_device_name(0)}: prefill {B}x{T}"
@@ -2111,18 +2651,17 @@ def phase_serve_whisper():
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T))
                               .astype(np.int32)).to(DEV)
     torch.cuda.reset_peak_memory_stats()
-    for k in KERNELS.values():
-        k["fn"].launches = 0
+    _zero_launches()
     t0 = time.monotonic()
     last, cache = model_zoo.prefill(cfg, params, {"tokens": prompt,
                                                   "frames": frames})
     torch.cuda.synchronize()
     prefill_ms = (time.monotonic() - t0) * 1e3
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = _launch_counts()
     _finite(last, "serve-whisper prefill")
     last, cache, dec = _greedy(cfg, params, last,
                                _padded(cfg, cache, S["pad"]), S["to"] - T, T)
-    after = {name: k["fn"].launches for name, k in KERNELS.items()}
+    after = _launch_counts()
     step_ms = float(np.median(dec))
     log(f"[serve-whisper] on {torch.cuda.get_device_name(0)}: prefill "
         f"(encoder {B}x{S['frames']} frames + decoder {B}x{T}) "
@@ -2292,15 +2831,14 @@ def phase_serve_moe():
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; calibrated prefill "
         f"{1.0 / backend.prefill_rate() * 1e6:.1f} us/token, decode step "
         f"{backend._decode_s_per_step * 1e3:.2f} ms")
-    for k in KERNELS.values():
-        k["fn"].launches = 0
+    _zero_launches()
     try:
         _serve_api(backend, 0, force_offload=False)
         _serve_api(backend, 1, force_offload=True)
     except BaseException:
         backend.close()
         raise
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = _launch_counts()
     st = backend.dispatch_stats
     log(f"[serve-moe] on {torch.cuda.get_device_name(0)}: dispatch_stats "
         + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
@@ -2361,8 +2899,7 @@ def phase_serve_dense():
         f"{backend._decode_s_per_step * 1e3:.2f} ms, host link "
         f"{backend._h2d_bw / 1e9:.2f} GB/s")
     # zeroed after the backend is built: calibrate runs lm_step too
-    for k in KERNELS.values():
-        k["fn"].launches = 0
+    _zero_launches()
     st = backend.dispatch_stats
     calls0 = st["prefill_calls"]
     ecfg = dict(total_kv_blocks=DENSE_SERVE["slots"]
@@ -2375,7 +2912,7 @@ def phase_serve_dense():
     except BaseException:
         backend.close()
         raise
-    launches = {name: k["fn"].launches for name, k in KERNELS.items()}
+    launches = _launch_counts()
     n_prefill = st["prefill_calls"] - calls0
     log(f"[serve-dense] on {torch.cuda.get_device_name(0)}: dispatch_stats "
         + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
@@ -3620,8 +4157,23 @@ def main() -> int:
     phase_model_ssm()
     log(f"[model-ssm] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
-    launches = phase_serve()
+    launches, llama_params, mars_wall = phase_serve()
     log(f"[serve] done in {time.monotonic() - t0:.2f}s")
+    t0 = time.monotonic()
+    obs_launches = phase_serve_obs(llama_params, mars_wall)
+    log(f"[serve-obs] done in {time.monotonic() - t0:.2f}s")
+    t1 = time.monotonic()
+    fault_launches = phase_serve_faults(llama_params)
+    log(f"[serve-faults] done in {time.monotonic() - t1:.2f}s")
+    t1 = time.monotonic()
+    router_launches = phase_serve_router(llama_params)
+    log(f"[serve-router] done in {time.monotonic() - t1:.2f}s")
+    log(f"[serve-obs] [serve-faults] [serve-router] {time.monotonic() - t0:.2f}s "
+        f"together; launches (logged apart; the kernels JSON keeps the "
+        f"serve's): {obs_launches}, {fault_launches}, {router_launches}")
+    del llama_params
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.monotonic()
     rows = phase_timing(errs, launches)
     flash_row = phase_flash_timing(errs)

@@ -255,6 +255,14 @@ class TorchBackend:
         everything beyond draws by (sid, absolute position)."""
         ids = s.meta.setdefault("context_ids", [])
         target = s.prefill_target
+        # a round evacuated mid-tool (router failover) is decoded again on
+        # its new home: drop the tokens its first decode left behind, so
+        # the round is neither counted nor put in the context twice
+        gen = s.meta.get("generated")
+        done = sum(r.decode_tokens for r in s.rounds[:s.cur_round])
+        if gen is not None and len(gen) > done + s.decoded:
+            del gen[done + s.decoded:]
+            del ids[target + s.decoded:]
         V = self.cfg.vocab_size
         hashes = s.meta.get("prefix_hashes")
         if hashes:

@@ -29,6 +29,7 @@ there is none.
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -113,6 +114,57 @@ def serve_live(*, arch: str, policy: str, n_sessions: int,
             print(f"[serve-live] sid={s.sid} e2e={s.e2e_latency:.2f}s "
                   f"tokens={gen} ttfts={[round(t, 3) for t in s.ttfts]}")
     return finished
+
+
+def run_cluster_live(router, engines, sessions, *, timeout: float = 300.0,
+                     on_round=None):
+    """Wall-clock run of live engines behind a ``ClusterRouter``, as
+    ``examples/cluster_serving.py`` runs simulated ones: each round places
+    the sessions that have arrived (``arrival_time`` in seconds from the
+    start), ticks every replica in ``engines`` ({rid: Engine}, registered
+    with the router) and heartbeats it with its KV utilisation, tool
+    backlog, active sessions, tick seconds and radix digest, then lets the
+    router detect missed heartbeats and re-place requeued sessions.
+
+    ``on_round(now)``, called first in every round, is the caller's fault
+    hook: it may remove a replica from ``engines`` (no more ticks or
+    heartbeats: the router fails it after ``heartbeat_timeout``) or make
+    it ``leave`` and re-place what it returns. Ends when every session has
+    arrived, every replica left in ``engines`` is done, nothing is
+    requeued and the router holds no live replica outside ``engines`` (a
+    removed one still owes its sessions until the router fails it). An
+    idle round sleeps 5 ms, as ``run_live`` does. Returns (the finished sessions of every replica, seconds)."""
+    t0 = time.monotonic()
+    arrivals = sorted(sessions, key=lambda s: s.arrival_time)
+    every = dict(engines)                # finished sessions stay counted
+    i = 0
+    while time.monotonic() - t0 < timeout:
+        now = time.monotonic() - t0
+        if on_round is not None:
+            on_round(now)
+        while i < len(arrivals) and arrivals[i].arrival_time <= now:
+            router.place(arrivals[i], now=now)
+            i += 1
+        busy = False
+        for rid, eng in list(engines.items()):
+            el, progressed = eng.tick(now)
+            busy |= progressed or el > 0
+            router.heartbeat(rid, kv_utilization=eng.telem.kv_utilization,
+                             tool_backlog=eng.tools.backlog,
+                             active_sessions=len(eng.active),
+                             step_latency=max(el, 1e-3),
+                             radix_digest=eng.radix_digest(), now=now)
+        router.check_failures(now=now)
+        router.dispatch_requeued(now=now)
+        if i >= len(arrivals) and not router.requeued and \
+                all(e.done() for e in engines.values()) and \
+                all(rid in engines for rid, r in router.replicas.items()
+                    if r.alive):
+            break
+        if not busy:
+            time.sleep(0.005)
+    finished = [s for e in every.values() for s in e.finished]
+    return finished, time.monotonic() - t0
 
 
 def main(argv=None):

@@ -576,3 +576,43 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     else:
         d_next = torch.zeros((0,), dtype=torch.int32, device=dev)
     return p_next, d_next, cache
+
+
+def lm_prefill_paged_gather(cfg: ModelConfig, params, cache: PagedKVCache,
+                            tokens, positions, table, write_pages,
+                            write_offsets):
+    """Legacy chunked prefill: gather the lease into a dense view, run the
+    dense ``lm_step`` on it, scatter the chunk's KV back.
+
+    The exactness baseline for ``lm_prefill_paged``: the same argument
+    layout minus ``kv_len``. Its attention is the dense ``flash_attention``
+    (through ``lm_step``) where ``lm_prefill_paged`` runs
+    ``paged_flash_attention``. ``lm_step`` takes the chunk's start on the
+    host, so the positions are read back (one sync) and must have
+    ``lm_step``'s form: the real rows at ``start, start + 1, ...``, the
+    padded lanes at ``Np*page - 1``; anything else raises. Each chunk
+    row's KV is read back from the dense view at its own position (JAX
+    slices C rows from the start; the two agree wherever the chunk fits
+    the view). Returns (logits (1, C, V) float32, cache), the pool updated
+    in place.
+    """
+    if not supports_paged(cfg):
+        raise ValueError("paged prefill: unsupported attention variant")
+    L, _, page, Hkv, D = cache.k.shape
+    tbl = table.long()
+    S = tbl.shape[0] * page
+    dense = KVCache(cache.k[:, tbl].reshape(L, 1, S, Hkv, D),
+                    cache.v[:, tbl].reshape(L, 1, S, Hkv, D))
+    pos = positions[0].tolist()
+    start = pos[0]
+    n_real = next((i for i, p in enumerate(pos) if p != start + i), len(pos))
+    if any(p != S - 1 for p in pos[n_real:]):
+        raise ValueError("positions must run from the chunk's start, the "
+                         f"padded lanes at {S - 1}: {pos}")
+    logits, dense = lm_step(cfg, params, dense, tokens, q_offset=start,
+                            n_real=n_real)
+    rows = positions[0].long()
+    wp, wo = write_pages.long(), write_offsets.long()
+    cache.k[:, wp, wo] = dense.k[:, 0, rows]
+    cache.v[:, wp, wo] = dense.v[:, 0, rows]
+    return logits, cache

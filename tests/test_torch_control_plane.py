@@ -3,8 +3,8 @@ port's import boundary.
 
 ``src/repro_torch`` carries copies of the JAX-free control plane
 (``core``, ``kvcache``, ``engine``, ``configs``, ``models.config``,
-``models.perf_model``, ``workloads.generator``, ``train.data``) so that
-it imports nothing of ``repro``. These tests keep the copies honest: each
+``models.perf_model``, ``workloads.generator``, ``train.data``, ``obs``,
+``distributed.router``) so that it imports nothing of ``repro``. These tests keep the copies honest: each
 differs from its reference only in its import lines, and the copied
 Engine over ``SimBackend`` replays a seeded scenario event for event. The
 boundary test imports the port's entry points and ``chip_smoke.py`` in a
@@ -26,12 +26,13 @@ SRC = ROOT / "src"
 COPIED = sorted(
     str(p.relative_to(SRC / "repro_torch"))
     for sub in ("core", "kvcache", "configs", "engine", "models",
-                "workloads", "train")
+                "workloads", "train", "obs", "distributed")
     for p in (SRC / "repro_torch" / sub).glob("*.py")
     if (SRC / "repro" / p.relative_to(SRC / "repro_torch")).exists()
     and p.name not in ("layers.py", "transformer.py", "rwkv6.py",
                        "mamba2.py", "zamba2.py", "whisper.py",
-                       "model_zoo.py", "optimizer.py"))   # ported, not copied
+                       "model_zoo.py", "optimizer.py", "steps.py",
+                       "checkpoint.py"))   # ported, not copied
 
 
 def test_copies_cover_the_engine_closure():
@@ -40,7 +41,10 @@ def test_copies_cover_the_engine_closure():
                  "kvcache/swap_stream.py", "core/policies.py",
                  "models/config.py", "configs/registry.py",
                  "configs/llama3_2_1b.py", "workloads/generator.py",
-                 "train/data.py"):
+                 "train/data.py", "obs/__init__.py", "obs/trace.py",
+                 "obs/metrics.py", "obs/perfetto.py", "obs/slo.py",
+                 "obs/detect.py", "obs/recorder.py", "obs/health.py",
+                 "engine/faults.py", "distributed/router.py"):
         assert name in COPIED
 
 
@@ -56,9 +60,9 @@ def test_copy_differs_from_reference_only_in_imports(name):
                 "import_module(f\"repro_torch.configs." in a, (name, a)
 
 
-def _sim_run(pkg):
-    """One seeded MARS scenario on the simulator, built from ``pkg``'s
-    own engine, generator and configs."""
+def _sim_engine(pkg):
+    """The seeded MARS scenario of ``_sim_run``, built from ``pkg``'s own
+    engine, generator and configs: (engine, sessions, ``run_sim``)."""
     import importlib
     eng_mod = importlib.import_module(f"{pkg}.engine.engine")
     backend_mod = importlib.import_module(f"{pkg}.engine.backend")
@@ -75,7 +79,14 @@ def _sim_run(pkg):
         total_kv_blocks=6000, block_size=32, token_budget=8192,
         max_decode_batch=64, decode_granularity=8, cpu_slots=8,
         disk_tier_blocks=-1), "mars", backend_mod.SimBackend(cfg, hw))
-    finished, horizon = eng_mod.run_sim(eng, sessions, max_time=2e5)
+    return eng, sessions, eng_mod.run_sim
+
+
+def _sim_run(pkg):
+    """One seeded MARS scenario on the simulator, built from ``pkg``'s
+    own engine, generator and configs."""
+    eng, sessions, run_sim = _sim_engine(pkg)
+    finished, horizon = run_sim(eng, sessions, max_time=2e5)
     eng.check_invariants()
     log = [(e.kind, e.t, e.sid, repr(sorted(e.data.items())))
            for e in eng.bus.log]
@@ -111,6 +122,9 @@ import repro_torch.launch.train
 import repro_torch.distributed.steps
 import repro_torch.distributed.checkpoint
 import repro_torch.train.optimizer
+import repro_torch.obs
+import repro_torch.engine.faults
+import repro_torch.distributed.router
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -1,8 +1,10 @@
 """The port's model paths on the CPU against the JAX package: the paged
 path on ``llama3.2-1b``, the dense-cache path (``lm_forward``, chunked
 ``lm_step``, ``lm_decode``) on ``gemma2-27b``, ``llama3.2-1b``,
-``qwen2.5-3b`` (qkv bias, tied embeddings), ``internlm2-20b`` and
-``llava-next-34b``. The ``check_*`` bodies also serve the MoE family
+``qwen2.5-3b`` (qkv bias, tied embeddings), ``internlm2-20b``,
+``llava-next-34b`` and ``gpt-oss-120b`` (MoE with local/global layers,
+window 128, which no paged function takes in either package). The
+``check_*`` bodies also serve the MoE family
 (tests/test_torch_moe.py).
 
 Weights come from ``repro.models.model_zoo.init`` on the ``.reduced()``
@@ -12,27 +14,50 @@ numpy and handed to both packages. Logits, real rows only, and
 non-scratch cache positions agree within 1e-4 (XLA and ATen sum in other
 orders); layer functions within 2e-5 in float32 and 3e-2 in bfloat16.
 """
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import gpt_oss_120b as jgpt_oss
+from repro.configs import qwen3_coder_30b as jqwen3
 from repro.configs.registry import get_config as jget_config
 from repro.models import layers as jL
 from repro.models import model_zoo
 from repro.models import transformer as jtf
+from repro_torch.configs import gpt_oss_120b as gpt_oss
+from repro_torch.configs import qwen3_coder_30b as qwen3
 from repro_torch.configs.registry import get_config
 from repro_torch.models import layers as tL
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import params_from_numpy
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+from chip_smoke import gather_chunks  # noqa: E402  (the card's chunks too)
+
 ATOL = 1e-4
 
 
+def _reduced(arch):
+    """(port, JAX) ``.reduced()`` configs; the paper's two models,
+    Qwen3-Coder and gpt-oss, are no assigned archs, so they are read from
+    their config modules in both."""
+    if arch == "qwen3-coder-30b-a3b":
+        return qwen3.CONFIG.reduced(), jqwen3.CONFIG.reduced()
+    if arch == "gpt-oss-120b":
+        return gpt_oss.CONFIG.reduced(), jgpt_oss.CONFIG.reduced()
+    return get_config(arch).reduced(), jget_config(arch).reduced()
+
+
 def _load(arch):
-    cfg = get_config(arch).reduced()
-    jcfg = jget_config(arch).reduced()
+    """JAX's seed-0 float32 weights of ``arch`` ``.reduced()``, carried
+    across."""
+    cfg, jcfg = _reduced(arch)
     jparams = model_zoo.init(jcfg, jax.random.PRNGKey(0), jnp.float32)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
                                 dtype=torch.float32)
@@ -45,7 +70,7 @@ def model():
 
 
 DENSE_ARCHS = ["gemma2-27b", "llama3.2-1b", "qwen2.5-3b", "internlm2-20b",
-               "llava-next-34b"]
+               "llava-next-34b", "gpt-oss-120b"]
 
 
 @pytest.fixture(scope="module", params=DENSE_ARCHS)
@@ -220,6 +245,63 @@ def check_lm_prefill_paged(model):
     jc, tc = chunk(jc, tc, 32, 16, table_c)
 
 
+def test_lm_prefill_paged_gather_matches_jax(model):
+    """The gather baseline (dense view, ``lm_step``, scatter back) against
+    JAX's ``lm_prefill_paged_gather`` on the reference's chunk sequence:
+    real-lane logits and non-scratch pages within 1e-4 after every chunk."""
+    cfg, jcfg, jparams, tparams = model
+    page, P, Np = 32, 8, 4
+    scratch = P - 1
+    jc, tc = _pools(cfg, P, page, 3)
+    for n_real, *args, _kv in gather_chunks(cfg.vocab_size, scratch, Np, page,
+                                             np.random.default_rng(17)):
+        jl, jc = jtf.lm_prefill_paged_gather(jcfg, jparams, jc,
+                                             *(jnp.asarray(a) for a in args))
+        tl, tc = ttf.lm_prefill_paged_gather(cfg, tparams, tc,
+                                             *(torch.from_numpy(a)
+                                               for a in args))
+        assert tl.dtype == torch.float32
+        np.testing.assert_allclose(_np(tl[:, :n_real]),
+                                   np.asarray(jl[:, :n_real]), atol=ATOL)
+        _assert_pools(jc, tc, scratch)
+
+
+def test_lm_prefill_paged_matches_gather(model):
+    """The port's ``lm_prefill_paged`` against its own gather baseline on
+    the same chunk sequence, bit for bit on the CPU (as the reference's
+    ``test_lm_prefill_paged_bitwise_matches_gather`` holds JAX's): real-lane
+    logits and non-scratch pages. Both plain attentions mask with -1e30
+    over the same Np * page keys, so the masked keys add exact zeros."""
+    cfg, _jcfg, _jparams, tparams = model
+    page, P, Np = 32, 8, 4
+    scratch = P - 1
+    _, tg = _pools(cfg, P, page, 3)
+    _, tn = _pools(cfg, P, page, 3)
+    live = [p for p in range(P) if p != scratch]
+    for n_real, *args, kv in gather_chunks(cfg.vocab_size, scratch, Np, page,
+                                            np.random.default_rng(17)):
+        targs = [torch.from_numpy(a) for a in args]
+        lg, tg = ttf.lm_prefill_paged_gather(cfg, tparams, tg, *targs)
+        ln, tn = ttf.lm_prefill_paged(cfg, tparams, tn, *targs,
+                                      torch.tensor(kv))
+        assert torch.equal(ln[:, :n_real], lg[:, :n_real])
+        assert torch.equal(tn.k[:, live], tg.k[:, live])
+        assert torch.equal(tn.v[:, live], tg.v[:, live])
+
+
+def test_lm_prefill_paged_gather_checks_positions(model):
+    """Positions off ``lm_step``'s chunk form raise."""
+    cfg, _jcfg, _jparams, tparams = model
+    _, tc = _pools(cfg, 8, 32, 3)
+    pos = torch.arange(32, dtype=torch.int32)[None]
+    pos[0, 20] = 5
+    with pytest.raises(ValueError, match="padded lanes"):
+        ttf.lm_prefill_paged_gather(
+            cfg, tparams, tc, torch.ones((1, 32), dtype=torch.int32), pos,
+            torch.tensor([0, 1, 2, 7]), torch.zeros(32, dtype=torch.int32),
+            torch.arange(32, dtype=torch.int32))
+
+
 def test_lm_mixed_paged_matches_jax(model):
     check_lm_mixed_paged(model)
 
@@ -268,7 +350,7 @@ def test_lm_forward_and_prefill_match_jax(dense_model):
 
 def check_lm_forward_and_prefill(model):
     cfg, jcfg, jparams, tparams = model
-    if cfg.sliding_window is not None:
+    if cfg.name.startswith("gemma2"):        # post norms, tied embeddings
         assert cfg.post_sublayer_norm and cfg.tie_embeddings
         assert "lm_head" not in tparams
     toks = np.random.default_rng(5).integers(
@@ -408,10 +490,10 @@ def test_dense_attention_matches_jax():
     assert np.array_equal(m_t.numpy(), np.asarray(m_j))
 
 
-def test_moe_family_is_not_ported():
-    """The MoE family is served now: ``init_lm`` draws its router and
-    stacked experts (the parity tests are in tests/test_torch_moe.py);
-    a family that is no transformer LM is refused."""
+def test_init_lm_draws_moe_and_refuses_other_families():
+    """``init_lm`` draws the MoE family's router and stacked experts (the
+    parity tests are in tests/test_torch_moe.py); a family that is no
+    transformer LM is refused."""
     cfg = get_config("granite-moe-3b-a800m").reduced()
     p = ttf.init_lm(cfg, torch.Generator().manual_seed(0), torch.float32)
     m = cfg.moe

@@ -7,11 +7,13 @@ routes, capacity slots and the keep mask must be equal, values within
 2e-5 in float32. A router biased towards one expert forces capacity
 overflow; padded rows (identical tokens, as a pack's padded lanes are)
 route identically to one another, so no check relies on them routing
-uniquely. The model functions run on ``granite-moe-3b-a800m`` and
-``qwen3-coder-30b-a3b`` ``.reduced()`` with the weights of JAX's
-``model_zoo.init`` carried across by ``params_from_numpy``, through the
-bodies of tests/test_torch_model.py: logits and non-scratch pages within
-1e-4.
+uniquely. The model functions run on ``granite-moe-3b-a800m``,
+``qwen3-coder-30b-a3b`` and ``dbrx-132b`` ``.reduced()`` with the weights
+of JAX's ``model_zoo.init`` carried across by ``params_from_numpy``,
+through the bodies of tests/test_torch_model.py: logits and non-scratch
+pages within 1e-4. ``gpt-oss-120b`` (MoE with local/global layers,
+window 128) has no paged path in either package; its dense-cache
+functions run in tests/test_torch_model.py's dense parametrization.
 """
 import dataclasses
 
@@ -21,43 +23,23 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import qwen3_coder_30b as jqwen3
 from repro.configs.registry import get_config as jget_config
 from repro.models import layers as jL
 from repro.models import model_zoo as jzoo
 from repro.models import transformer as jtf
-from repro_torch.configs import qwen3_coder_30b as qwen3
 from repro_torch.configs.registry import get_config
 from repro_torch.models import layers as tL
 from repro_torch.models import model_zoo as tzoo
 from repro_torch.models import transformer as ttf
 from repro_torch.models.convert import params_from_numpy
-from test_torch_model import (_np, check_lm_decode,
+from test_torch_model import (_load, _np, _reduced, check_lm_decode,
                               check_lm_decode_paged,
                               check_lm_forward_and_prefill,
                               check_lm_mixed_paged, check_lm_prefill_paged,
                               check_lm_step_chunked_prefill)
 
-MOE_ARCHS = ["granite-moe-3b-a800m", "qwen3-coder-30b-a3b"]
+MOE_ARCHS = ["granite-moe-3b-a800m", "qwen3-coder-30b-a3b", "dbrx-132b"]
 TOL = 2e-5
-
-
-def _reduced(arch):
-    """(port, JAX) ``.reduced()`` configs; the paper's Qwen3-Coder is no
-    assigned arch, so it is read from its config module in both."""
-    if arch == "qwen3-coder-30b-a3b":
-        return qwen3.CONFIG.reduced(), jqwen3.CONFIG.reduced()
-    return get_config(arch).reduced(), jget_config(arch).reduced()
-
-
-def _load(arch):
-    """As tests/test_torch_model.py's ``_load``: JAX's seed-0 float32
-    weights, carried across."""
-    cfg, jcfg = _reduced(arch)
-    jparams = jzoo.init(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
-                                dtype=torch.float32)
-    return cfg, jcfg, jparams, tparams
 
 
 @pytest.fixture(scope="module", params=MOE_ARCHS)
@@ -278,3 +260,4 @@ def test_lm_step_chunked_prefill_matches_jax(moe_model):
 
 def test_lm_decode_matches_jax(moe_model):
     check_lm_decode(moe_model)
+

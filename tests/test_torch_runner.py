@@ -37,18 +37,31 @@ from repro_torch.engine import engine as tengine
 from repro_torch.engine.tools import RealToolExecutor
 from repro_torch.engine.torch_runner import TorchBackend
 from repro_torch.models.convert import params_from_numpy
+from test_torch_model import _reduced
 
 ARCH = "llama3.2-1b"
 MOE_ARCH = "granite-moe-3b-a800m"
+GPT_OSS = "gpt-oss-120b"
 
 
 def _jax_params(arch):
     """The weights JaxBackend(seed=0) draws (``model_zoo.init`` with
     ``PRNGKey(0)`` in float32), as numpy."""
     from repro.models import model_zoo
-    params = model_zoo.init(jget_config(arch).reduced(),
-                            jax.random.PRNGKey(0), jax.numpy.float32)
+    params = model_zoo.init(_reduced(arch)[1], jax.random.PRNGKey(0),
+                            jax.numpy.float32)
     return jax.tree.map(np.asarray, params)
+
+
+def _composition(eng):
+    """Per-tick batch composition from the engine's TICK events: the
+    prefill, decode and swap counts and tokens of every tick that ran a
+    batch (idle ticks, whose number follows the wall clock, left out)."""
+    keys = ("n_prefills", "prefill_tokens", "n_decodes", "decode_tokens",
+            "n_swapins", "n_swapouts")
+    rows = [tuple(e.data[k] for k in keys) for e in eng.bus.log
+            if e.kind == "tick"]
+    return [r for r in rows if any(r)]
 
 
 @pytest.fixture(scope="module")
@@ -101,10 +114,36 @@ def _duplicates(m, sids, *, shared_chunks=3, tail_tokens=16):
     return out
 
 
+def _virtual_clock(m, eng, sessions, *, dt=100.0, max_ticks=2000):
+    """Drive ``eng`` with a clock that advances ``dt`` seconds a tick,
+    whatever the wall: arrivals, tool ends (the simulated tool executor)
+    and every timestamp then follow the tick count, so two backends of
+    different speed see one schedule while ``dt`` exceeds any tick's
+    measured seconds. The swap stream is drained before each tick, so a
+    restore never waits on a transfer still running on the wall clock.
+    Returns the finished sessions."""
+    arrivals = sorted(sessions, key=lambda s: s.arrival_time)
+    stream = getattr(eng.backend._impl, "stream", None)   # dense: none
+    i, now = 0, 0.0
+    for _ in range(max_ticks):
+        if stream is not None:
+            stream.drain(timeout=60)
+        while i < len(arrivals) and arrivals[i].arrival_time <= now:
+            eng.submit(arrivals[i])
+            i += 1
+        eng.tick(now)
+        if eng.done() and i >= len(arrivals):
+            break
+        now += dt
+    return eng.finished, now
+
+
 def _run(m, backend, sessions, *, scheduler="mixed", offload=None,
-         tools=False, disk_blocks=0):
+         tools=False, disk_blocks=0, virtual=False):
+    """One Engine run under FCFS on the wall clock (``run_live``, real
+    tools), or with ``virtual`` on ``_virtual_clock`` (simulated tools)."""
     bus = m["EventBus"]()
-    tx = m["Tools"](cpu_slots=2, bus=bus) if tools else None
+    tx = m["Tools"](cpu_slots=2, bus=bus) if tools and not virtual else None
     eng = m["engine"].Engine(
         m["engine"].EngineConfig(total_kv_blocks=30, block_size=32,
                                  token_budget=256, max_decode_batch=4,
@@ -112,11 +151,15 @@ def _run(m, backend, sessions, *, scheduler="mixed", offload=None,
                                  scheduler=scheduler,
                                  disk_tier_blocks=disk_blocks),
         "fcfs", backend, bus=bus, **({"tool_exec": tx} if tx else {}))
+    eng.trace_ticks = True                  # TICK events: _composition
     if offload is not None:
         action = getattr(m["KVAction"], offload)
         eng.policy.on_tool_yield = lambda s, now: (action, 0.0)
     try:
-        finished, _ = m["engine"].run_live(eng, sessions, timeout=120)
+        if virtual:
+            finished, _ = _virtual_clock(m, eng, sessions)
+        else:
+            finished, _ = m["engine"].run_live(eng, sessions, timeout=120)
     finally:
         if tx is not None:
             tx.shutdown()
@@ -126,7 +169,7 @@ def _run(m, backend, sessions, *, scheduler="mixed", offload=None,
 
 
 def _torch_backend(params, spool=None, arch=ARCH, layout="paged"):
-    return TorchBackend(get_config(arch).reduced(), layout=layout,
+    return TorchBackend(_reduced(arch)[0], layout=layout,
                         max_slots=4, max_len=256, device="cpu",
                         dtype=torch.float32,
                         params=params_from_numpy(params, dtype=torch.float32),
@@ -134,12 +177,12 @@ def _torch_backend(params, spool=None, arch=ARCH, layout="paged"):
 
 
 def _both(params, build, spool=None, arch=ARCH, **kw):
-    jb = JaxBackend(jget_config(arch).reduced(), max_slots=4, max_len=256,
+    jb = JaxBackend(_reduced(arch)[1], max_slots=4, max_len=256,
                     disk_spool=spool and f"{spool}/jax")
-    jtok, _ = _run(_JAX, jb, build(_JAX), **kw)
+    jtok, jeng = _run(_JAX, jb, build(_JAX), **kw)
     ttok, eng = _run(_TORCH, _torch_backend(params, spool, arch),
                      build(_TORCH), **kw)
-    return jtok, ttok, eng
+    return jtok, ttok, eng, jeng
 
 
 @pytest.mark.live
@@ -150,7 +193,7 @@ def test_shared_family_tokens_match_jax_mixed_and_round(jax_backend_params):
     scheduler (per-session prefill calls + decode steps) exactly its own
     mixed tokens."""
     sids = [95101, 95102, 95103]
-    jtok, ttok, eng = _both(jax_backend_params, lambda m: _family(m, sids))
+    jtok, ttok, eng, jeng = _both(jax_backend_params, lambda m: _family(m, sids))
     assert set(ttok) == set(sids)
     assert ttok == jtok
     assert eng.prefix_hit_tokens >= 2 * 96
@@ -168,7 +211,7 @@ def test_forced_offload_tokens_match_jax(jax_backend_params):
     """Forced OFFLOAD at every tool yield: per-block swap-out, prefetch and
     swap-in through the async stream give the JAX backend's tokens."""
     sids = [97101, 97102]
-    jtok, ttok, eng = _both(jax_backend_params,
+    jtok, ttok, eng, jeng = _both(jax_backend_params,
                             lambda m: _family(m, sids, rounds=2),
                             offload="OFFLOAD", tools=True)
     assert ttok == jtok and set(ttok) == set(sids)
@@ -187,7 +230,7 @@ def test_forced_disk_offload_tokens_match_jax(jax_backend_params, tmp_path):
     and fills back (h2n / n2h jobs on the stream) and the tokens are still
     the JAX backend's."""
     sids = [97201, 97202]
-    jtok, ttok, eng = _both(jax_backend_params,
+    jtok, ttok, eng, jeng = _both(jax_backend_params,
                             lambda m: _family(m, sids, rounds=2),
                             spool=str(tmp_path), offload="OFFLOAD_DISK",
                             tools=True, disk_blocks=64)
@@ -215,7 +258,7 @@ def test_spool_round_trip_is_bit_exact_in_bf16(tmp_path):
 @pytest.mark.live
 def test_duplicate_and_cow_tail_tokens_match_jax(jax_backend_params):
     sids = [94101, 94102]
-    jtok, ttok, eng = _both(jax_backend_params,
+    jtok, ttok, eng, jeng = _both(jax_backend_params,
                             lambda m: _duplicates(m, sids))
     assert ttok == jtok and set(ttok) == set(sids)
     assert eng.prefix_hit_tokens == 3 * 32
@@ -283,7 +326,7 @@ def test_gemma2_dense_tokens_match_jax_with_forced_offload():
     yield: the port emits exactly the JAX backend's greedy tokens, on the
     round path (the dense layout has no fused mixed tick)."""
     sids = [96101, 96102]
-    jtok, ttok, eng = _both(
+    jtok, ttok, eng, jeng = _both(
         _jax_params("gemma2-27b"),
         lambda m: _family(m, sids, rounds=2, tail_chunks=2),
         arch="gemma2-27b", offload="OFFLOAD", tools=True)
@@ -360,13 +403,21 @@ def moe_backend_params():
     return _jax_params(MOE_ARCH)
 
 
-MOE_SCENARIOS = {
+# each scenario twice: on the wall clock (``run_live``, real tools, the
+# swap stream overlapping ticks), where the two backends' tick speeds give
+# two schedules, and on the virtual clock (``_virtual_clock``), where they
+# give one. The capacity dispatch couples every token of a call, so the
+# schedule is compared only where it is one (ROADMAP.md §3).
+_MOE_BUILDS = {
     "shared_family": dict(build=lambda m: _family(m, [93101, 93102, 93103])),
     "forced_offload": dict(build=lambda m: _family(m, [93201, 93202],
                                                    rounds=2),
                            offload="OFFLOAD", tools=True),
     "cow_tail": dict(build=lambda m: _duplicates(m, [93301, 93302])),
 }
+MOE_SCENARIOS = {**_MOE_BUILDS,
+                 **{f"{k}_virtual": dict(v, virtual=True)
+                    for k, v in _MOE_BUILDS.items()}}
 
 
 @pytest.mark.live
@@ -375,16 +426,24 @@ def test_moe_tokens_match_jax(moe_backend_params, scenario):
     """The shared-family, forced-offload and CoW-tail scenarios above on
     ``granite-moe-3b-a800m``: every layer's FFN is the capacity-dispatched
     MoE over each pack's and each decode batch's own padded tokens, and the
-    port emits exactly the JAX backend's greedy tokens."""
+    port emits exactly the JAX backend's greedy tokens. On the virtual
+    clock the two engines' per-tick batch composition is compared first,
+    so a schedule difference fails as such; on the wall clock it differs
+    by the backends' speeds (the port decodes alone at tick 1 where JAX,
+    slower, also prefills the second arrival) and only the tokens are
+    held."""
     kw = dict(MOE_SCENARIOS[scenario])
     build = kw.pop("build")
-    jtok, ttok, eng = _both(moe_backend_params, build, arch=MOE_ARCH, **kw)
+    jtok, ttok, eng, jeng = _both(moe_backend_params, build, arch=MOE_ARCH,
+                                  **kw)
+    if kw.get("virtual"):
+        assert _composition(eng) == _composition(jeng)
     assert ttok == jtok and len(ttok) >= 2
     assert eng.backend.layout == "paged"
     assert eng.backend.dispatch_stats["mixed_calls"] > 0
-    if scenario == "shared_family":
+    if scenario.startswith("shared_family"):
         assert eng.prefix_hit_tokens >= 2 * 96
-    elif scenario == "forced_offload":
+    elif scenario.startswith("forced_offload"):
         assert any(e.kind == tev.SWAP_OUT and e.data.get("tier") == "host"
                    for e in eng.bus.log)
         assert eng.backend.swap_stream_stats()["h2d_completed"] > 0
@@ -404,6 +463,7 @@ def _api_run(m, backend):
                                  token_budget=128, max_decode_batch=2,
                                  decode_granularity=4, cpu_slots=1),
         "mars", backend, bus=bus, tool_exec=tools)
+    eng.trace_ticks = True                  # TICK events: _composition
     api = m["api"].ServingAPI(eng)
     Req = m["api"].ChatRequest
     effects = []
@@ -432,17 +492,38 @@ def test_serving_api_tokens_match_jax(arch):
     """``ServingAPI`` over ``TorchBackend(device="cpu")`` and over
     ``JaxBackend``: one ``job_id`` spans both rounds, the tool runs once,
     the second round resumes warm (its KV pinned through the tool call)
-    and both backends resolve the futures with the same greedy tokens."""
+    and both backends resolve the futures with the same greedy tokens,
+    after the same per-tick batch composition (the MoE tokens depend on
+    the schedule)."""
     params = _jax_params(arch)
     jb = JaxBackend(jget_config(arch).reduced(), max_slots=2, max_len=256)
-    want, jeff, _, jwarm = _api_run(_JAX, jb)
+    want, jeff, jeng, jwarm = _api_run(_JAX, jb)
     tb = TorchBackend(get_config(arch).reduced(), max_slots=2, max_len=256,
                       device="cpu", dtype=torch.float32,
                       params=params_from_numpy(params, dtype=torch.float32))
-    got, teff, _, twarm = _api_run(_TORCH, tb)
+    got, teff, teng, twarm = _api_run(_TORCH, tb)
+    assert _composition(teng) == _composition(jeng)
     assert teff == jeff == [1]
     assert [r["round"] for r in got] == [0, 1]
     assert all(r["job_id"] == "job-A" for r in got)
     assert all(len(r["tokens"]) == 8 and r["ttft"] is not None for r in got)
     assert [r["tokens"] for r in got] == [r["tokens"] for r in want]
     assert twarm and jwarm
+
+
+@pytest.mark.live
+def test_gpt_oss_dense_layout_tokens_match_jax():
+    """``gpt-oss-120b`` ``.reduced()`` (MoE with local/global layers,
+    window 128): both backends take the dense layout, and the port emits
+    exactly the JAX backend's greedy tokens over two rounds with a tool in
+    between, on the virtual clock (the MoE tokens depend on the schedule;
+    see ``MOE_SCENARIOS``). The per-tick batch composition is compared
+    first."""
+    sids = [93151, 93152, 93153]
+    jtok, ttok, eng, jeng = _both(
+        _jax_params(GPT_OSS), lambda m: _family(m, sids, rounds=2),
+        arch=GPT_OSS, tools=True, virtual=True)
+    assert eng.backend.layout == "dense" and eng.backend.cfg.family == "moe"
+    assert _composition(eng) == _composition(jeng)
+    assert ttok == jtok and set(ttok) == set(sids)
+    assert all(len(t) == 8 + 6 for t in ttok.values())

@@ -145,6 +145,27 @@ Phases, in order; any failure exits non-zero:
                 batch): the output and the autograd Function's input
                 gradients for a random cotangent. Its launches are logged
                 apart
+13. sharded     the sharded path on a one-rank NCCL group, mesh (data 1,
+                model 1): DTensor params, local_map around the kernels,
+                explicit collectives. Full-width llama3.2-1b loss and
+                every gradient leaf (f32, B 8 x S 1,024, remat) with the
+                mesh against without it (loss within 1e-6 relative, each
+                leaf within 1e-5 of its largest magnitude), then one train
+                step each (loss 1e-6, grad norm 1e-6 relative);
+                flash_attention must launch under the mesh. dbrx-132b at
+                full width cut to 2 layers in bf16 (the depth is the only
+                cut; about 15 GB): _moe_block through moe_ffn_ep_local
+                against moe_ffn with a capacity that drops nothing, and
+                the prefill step's greedy tokens with the mesh against
+                without (equal). rwkv6-1.6b full-width bf16 prefill (B 8 x
+                T 1,024) with the mesh against without: logits, wkv6 must
+                launch. Both bf16 checks at 3e-2 of the largest output
+                (the bf16 model tolerance). Then the dry run
+                (python -m repro_torch.launch.dryrun, a fake world of 256
+                ranks, mesh data 16 x model 16) of four cells in parallel
+                subprocesses and roofline over their report: one row each,
+                every cell ok. The launches under the mesh are logged
+                apart
 
 The MoE family (qwen3-coder-30b-a3b, the paper's model, and
 granite-moe-3b-a800m) adds, in run order:
@@ -250,6 +271,7 @@ from repro_torch.kernels.paged_flash_attention import \
     paged_flash_attention  # noqa: E402
 from repro_torch.kernels.wkv6 import _WKV6, wkv6  # noqa: E402
 from repro_torch.kvcache.radix import estimate_digest_match  # noqa: E402
+from repro_torch.distributed import sharding as sh  # noqa: E402
 from repro_torch.distributed import steps as train_steps  # noqa: E402
 from repro_torch.launch.serve import run_cluster_live  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -259,6 +281,7 @@ from repro_torch.obs import (  # noqa: E402
     export_perfetto, load_events_jsonl)
 from repro_torch.train.optimizer import init_opt  # noqa: E402
 from repro_torch.models import mamba2, model_zoo, zamba2  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import rwkv6  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 
@@ -2965,7 +2988,9 @@ def device_ms(fn, key: str, iters: int = 50) -> float:
     once most of them, once all of them), so the time is the mean of the
     records it holds times the kernels a call launches, not their sum over
     the calls, and a trace that holds none is taken again, up to three
-    times."""
+    times. When all three hold none (once in an H100 run, at the
+    zamba2 shape), the time is the CUDA events' per call instead, host
+    cost included, and a line says so."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -2984,7 +3009,10 @@ def device_ms(fn, key: str, iters: int = 50) -> float:
         log(f"[timing] device_ms({key!r}): no kernel record in the trace "
             f"of {iters} calls (trace {attempt} of 3)")
     else:
-        raise AssertionError(f"no device time for {key} in three traces")
+        ms = time_ms(fn, iters)
+        log(f"[timing] device_ms({key!r}): no kernel record in three "
+            f"traces; the CUDA-event time instead: {ms:.4f} ms a call")
+        return ms
     per_call = max(1, round(n / iters))
     if n != per_call * iters:
         log(f"[timing] device_ms({key!r}): {n} kernel records for {iters} "
@@ -4095,6 +4123,267 @@ def phase_train() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 13. sharded: the mesh path on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+SHARDED_TRAIN = dict(arch="llama3.2-1b", batch=8, seq_len=1024)
+SHARDED_MOE = dict(arch="dbrx-132b", layers=2, batch=4, seq_len=256)
+SHARDED_RWKV = dict(arch="rwkv6-1.6b", batch=8, seq_len=1024)
+SHARD_LOSS_REL, SHARD_GRAD_REL = 1e-6, 1e-5
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("dbrx-132b", "train_4k"),
+                ("gemma2-27b", "decode_32k"), ("rwkv6-1.6b", "long_500k"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _leaf_rel(a, b) -> float:
+    b = b.full_tensor() if hasattr(b, "full_tensor") else b
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+
+
+def _sharded_train(mesh) -> int:
+    """Full-width llama3.2-1b, f32: the loss and every gradient leaf with
+    the mesh against without it, then one train step of each."""
+    cfg = get_config(SHARDED_TRAIN["arch"])
+    B, S = SHARDED_TRAIN["batch"], SHARDED_TRAIN["seq_len"]
+    params = model_zoo.init(cfg, 0, torch.float32, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    batch = {k: torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                              device=DEV, dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    t0 = time.monotonic()
+    loss1, g1 = train_steps.loss_and_grads(cfg, params, batch, remat=True)
+    t1 = time.monotonic() - t0
+    pd = train_steps.shard_params(cfg, mesh, _clone(params))
+    before = _launches("flash_attention")
+    t0 = time.monotonic()
+    loss2, g2 = train_steps.loss_and_grads(
+        cfg, pd, train_steps.shard_batch(mesh, batch),
+        pctx=sh.make_pctx(cfg, mesh), remat=True)
+    torch.cuda.synchronize()
+    t2 = time.monotonic() - t0
+    flash = _launches("flash_attention") - before
+    loss_rel = abs(float(loss1) - float(loss2.full_tensor())) / abs(
+        float(loss1))
+    grad_rel = max(_leaf_rel(a, b) for (_, a), (_, b) in zip(
+        _named_leaves(g1), _named_leaves(g2)))
+    log(f"[sharded] llama3.2-1b full width f32 B={B} S={S} loss and "
+        f"grads: loss {float(loss1):.6f}, rel err {loss_rel:.3e} (tol "
+        f"{SHARD_LOSS_REL}); worst leaf {grad_rel:.3e} of its largest "
+        f"|grad| (tol {SHARD_GRAD_REL}); {t1:.2f}s without the mesh, "
+        f"{t2:.2f}s with it; flash_attention launches under the mesh "
+        f"{flash}")
+    if not (loss_rel <= SHARD_LOSS_REL and grad_rel <= SHARD_GRAD_REL
+            and flash > 0):
+        raise AssertionError(f"sharded llama: loss {loss_rel}, grads "
+                             f"{grad_rel}, flash launches {flash}")
+    del g1, g2, pd
+    gc.collect()
+    torch.cuda.empty_cache()
+    p1 = _clone(params)
+    _, _, m1 = train_steps.build_train_step(cfg, remat=True)(
+        p1, init_opt(p1), batch)
+    del p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    p2 = train_steps.shard_params(cfg, mesh, _clone(params))
+    o2 = train_steps.shard_opt_state(cfg, mesh, init_opt(params))
+    before = _launches("flash_attention")
+    _, _, m2 = train_steps.build_train_step(cfg, mesh, remat=True)(
+        p2, o2, batch)
+    step_flash = _launches("flash_attention") - before
+    rels = {k: abs(float(m1[k]) - float(m2[k])) / abs(float(m1[k]))
+            for k in ("loss", "grad_norm")}
+    log(f"[sharded] one train step each: loss {float(m1['loss']):.6f} / "
+        f"{float(m2['loss']):.6f}, grad norm {float(m1['grad_norm']):.6f} "
+        f"/ {float(m2['grad_norm']):.6f}, rel err {rels}; flash_attention "
+        f"launches in the mesh step {step_flash}")
+    if not max(rels.values()) <= SHARD_LOSS_REL or step_flash <= 0:
+        raise AssertionError(f"sharded train step: {rels}, {step_flash}")
+    return flash + step_flash
+
+
+def _sharded_moe(mesh) -> int:
+    """dbrx-132b at full width, 2 layers, bf16: the expert-parallel block
+    against moe_ffn, and the prefill step's greedy tokens."""
+    cfg = dataclasses.replace(get_config(SHARDED_MOE["arch"]),
+                              n_layers=SHARDED_MOE["layers"])
+    B, S = SHARDED_MOE["batch"], SHARDED_MOE["seq_len"]
+    params = model_zoo.init(cfg, 0, torch.bfloat16, device=DEV)
+    pd = train_steps.shard_params(cfg, mesh, params)
+    n = _param_count(params)
+    log(f"[sharded] dbrx-132b full width, {cfg.n_layers} layers, bf16: "
+        f"{n / 1e9:.2f} B params ({2 * n / 1e9:.2f} GB), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated with the "
+        f"mesh's copies")
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)
+        / cfg.moe.top_k))
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    h = torch.randn((B, S, cfg.d_model), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = model_layers.moe_ffn(nodrop, tf.layer_params(
+            params["layers"], 0)["moe"], h)
+        got = tf._moe_block(nodrop, tf.layer_params(pd["layers"], 0),
+                            train_steps.shard_batch(mesh, {"h": h})["h"],
+                            sh.make_pctx(nodrop, mesh)).full_tensor()
+    err = float((got.float() - want.float()).abs().max())
+    tol = BF16_MODEL_TOL * float(want.float().abs().max())
+    log(f"[sharded] _moe_block (moe_ffn_ep_local: all-to-all over 'data') "
+        f"vs moe_ffn, {B * S} tokens, nothing dropped: max abs err "
+        f"{err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"sharded EP MoE: {err} > {tol}")
+    toks = {"tokens": torch.randint(1, cfg.vocab_size, (B, S),
+                                    generator=gen, device=DEV,
+                                    dtype=torch.int32)}
+    t1, _ = train_steps.build_prefill_step(cfg)(params, toks)
+    before = _launches("flash_attention")
+    t2, _ = train_steps.build_prefill_step(cfg, mesh)(pd, toks)
+    flash = _launches("flash_attention") - before
+    t2 = t2.full_tensor()
+    log(f"[sharded] dbrx prefill step B={B} S={S}: greedy tokens equal "
+        f"{bool(torch.equal(t1, t2))}; flash_attention launches under the "
+        f"mesh {flash}")
+    if not torch.equal(t1, t2) or flash <= 0:
+        raise AssertionError(f"sharded dbrx prefill: {t1} vs {t2}, "
+                             f"{flash} launches")
+    return flash
+
+
+def _sharded_rwkv(mesh) -> int:
+    """rwkv6-1.6b full-width bf16 prefill with the mesh against
+    without."""
+    cfg = get_config(SHARDED_RWKV["arch"])
+    B, T = SHARDED_RWKV["batch"], SHARDED_RWKV["seq_len"]
+    params = model_zoo.init(cfg, 0, torch.bfloat16, device=DEV)
+    pd = train_steps.shard_params(cfg, mesh, params)
+    gen = torch.Generator(device=DEV).manual_seed(37)
+    batch = {"tokens": torch.randint(1, cfg.vocab_size, (B, T),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32)}
+    with torch.no_grad():
+        l1, _ = model_zoo.prefill(cfg, params, batch)
+        before = _launches("wkv6")
+        l2, _ = model_zoo.prefill(cfg, pd, train_steps.shard_batch(
+            mesh, batch), pctx=sh.make_pctx(cfg, mesh))
+        wkv = _launches("wkv6") - before
+        l2 = l2.full_tensor()
+    err = float((l1.float() - l2.float()).abs().max())
+    tol = BF16_MODEL_TOL * float(l1.float().abs().max())
+    same = bool(torch.equal(l1.argmax(-1), l2.argmax(-1)))
+    log(f"[sharded] rwkv6-1.6b full width bf16 prefill B={B} T={T}: logits "
+        f"max abs err {err:.3e} (tol {tol:.3e}), greedy tokens equal "
+        f"{same}; wkv6 launches under the mesh {wkv}")
+    if not err <= tol or wkv <= 0:
+        raise AssertionError(f"sharded rwkv6: {err} > {tol} or {wkv}")
+    return wkv
+
+
+def _sharded_dryrun() -> None:
+    """The dry run of DRYRUN_CELLS at the production mesh, one subprocess
+    a cell, all at once, then roofline over their report."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "build", "dryrun")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.monotonic()
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        path = os.path.join(out, f"{arch}_{shape}.json")
+        procs.append((path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", path], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    records = []
+    try:
+        for path, proc in procs:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            for line in text.splitlines():
+                if line.startswith("[dryrun]"):
+                    log(line)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun {path}: exit "
+                                     f"{proc.returncode}\n{text[-3000:]}")
+            with open(path) as f:
+                records += json.load(f)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[sharded] dry run of {len(DRYRUN_CELLS)} cells: "
+        f"{time.monotonic() - t0:.2f}s")
+    report = os.path.join(out, "report.json")
+    rows_path = os.path.join(out, "roofline.json")
+    with open(report, "w") as f:
+        json.dump(records, f, indent=1)
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline",
+                          "--report", report, "--out", rows_path], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=DRYRUN_TIMEOUT_S)
+    for line in run.stdout.splitlines():
+        log(f"[roofline] {line}")
+    if run.returncode != 0:
+        raise AssertionError(f"roofline: {run.stderr[-3000:]}")
+    with open(rows_path) as f:
+        rows = {(r["arch"], r["shape"]): r for r in json.load(f)}
+    for rec in records:
+        key = (rec["arch"], rec["shape"])
+        row = rows.get(key)
+        status = "ok" if rec["status"] == "ok" and row else "error"
+        coll = {k: f"{v:.4e}" for k, v in rec.get("collectives", {}).items()}
+        terms = row["terms_s"] if row else {}
+        log(f"[sharded] cell {key[0]} x {key[1]} on {rec.get('mesh')} "
+            f"({rec.get('device')}): per device flops "
+            f"{rec.get('flops', 0):.4e}, bytes {rec.get('bytes_accessed', 0):.4e}, "
+            f"args {rec.get('argument_size_in_bytes', 0):.4e} B, temp "
+            f"{rec.get('temp_size_in_bytes', 0):.4e} B, collective bytes "
+            f"{coll}; H100 terms (reckoned, data sheet) {terms}, dominant "
+            f"{row['dominant'] if row else '-'}, trace "
+            f"{rec.get('trace_s')}s: {status}")
+        if status != "ok":
+            raise AssertionError(f"dry run cell {key}: {rec.get('error')}")
+
+
+def phase_sharded() -> dict:
+    """The sharded path on the card: a one-rank NCCL group from an
+    in-process store, mesh (data 1, model 1); each part's seconds, the
+    kernels' launches under the mesh returned (logged apart)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(
+                                DEV.type, torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh(DEV.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        launches = {}
+        for label, fn in (("llama3.2-1b", _sharded_train),
+                          ("dbrx-132b", _sharded_moe),
+                          ("rwkv6-1.6b", _sharded_rwkv)):
+            t0 = time.monotonic()
+            launches[label] = fn(mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[sharded] {label} done in {time.monotonic() - t0:.2f}s")
+        t0 = time.monotonic()
+        _sharded_dryrun()
+        log(f"[sharded] dry run and roofline done in "
+            f"{time.monotonic() - t0:.2f}s")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def _kernel_name(mangled: str) -> str:
     """``flash_kernel_mma<128, 1>`` from nvcc's mangled name of a kernel
     in an anonymous namespace (its template's float, bf16, integer and
@@ -4243,6 +4532,16 @@ def main() -> int:
     log(f"[train] launches (logged apart; the kernels JSON keeps the serve "
         f"phases'): {train_launches}")
     log(f"[train] done in {time.monotonic() - t0:.2f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    sharded_launches = phase_sharded()
+    log(f"[sharded] launches under the mesh (logged apart; the kernels "
+        f"JSON keeps the serve phases'): flash_attention "
+        f"{sharded_launches['llama3.2-1b']} (llama loss, grads and step), "
+        f"{sharded_launches['dbrx-132b']} (dbrx prefill); wkv6 "
+        f"{sharded_launches['rwkv6-1.6b']} (rwkv6 prefill)")
+    log(f"[sharded] done in {time.monotonic() - t0:.2f}s")
     flash_row["launches"] = dense_launches["flash_attention"]
     wkv_row["launches"] = rwkv_launches["wkv6"]
     rows += [flash_row, wkv_row]

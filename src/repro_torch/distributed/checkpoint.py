@@ -6,7 +6,10 @@ writer never corrupts the latest checkpoint). ``save`` can run async on a
 background thread (training overlaps the host write); it takes a host
 copy of every leaf before it returns, so the in-place optimizer may go on
 updating the params while the thread writes. On restore, leaves are put
-on ``device``.
+on ``device``, or distributed to the meshes and placements of
+``shardings`` (elastic restore: a checkpoint saved on one mesh comes back
+on another, or on one device). A DTensor leaf is saved whole: every rank
+gathers it (``full_tensor``, a collective) and rank 0 writes.
 
 The layout is the reference's, file for file: a leaf is named by its path
 with ``__`` between the parts (dict keys, tuple indices, NamedTuple field
@@ -34,6 +37,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _SEP = "__"
 _BF16_BITS = np.dtype("V2")
@@ -80,6 +85,8 @@ def _to_host(leaf) -> np.ndarray:
     tensor's ``.numpy()`` would); bfloat16 as its bits in 2-byte void."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().copy().view(_BF16_BITS)
         return t.cpu().numpy().copy()
@@ -91,17 +98,22 @@ def _dtype_name(arr: np.ndarray) -> str:
 
 
 def _from_host(arr: np.ndarray) -> torch.Tensor:
+    # reshape: ``ascontiguousarray`` makes a 0-d leaf (the step) 1-d
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if arr.dtype == _BF16_BITS or arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def save(path: str, tree, *, step: int = 0, async_: bool = False,
          keep: int = 3) -> Optional[threading.Thread]:
     """Write a checkpoint at ``path``/step_<step>. Returns the writer thread
-    when async. Every leaf is copied to the host before this returns."""
+    when async. Every leaf is copied to the host before this returns. In a
+    process group of more than one rank every rank must call it (DTensor
+    leaves are gathered) and only rank 0 writes; the others return None."""
     leaves = [(n, _to_host(leaf)) for n, leaf in _flatten(tree)]
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
 
     def _write():
         final = os.path.join(path, f"step_{step:08d}")
@@ -147,11 +159,15 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def restore(path: str, target_tree, *, step: Optional[int] = None,
-            device=None, verify: bool = True):
+            device=None, shardings=None, verify: bool = True):
     """Restore into the structure of ``target_tree`` (its leaves, tensors
     or numbers, only name the structure). Every leaf comes back as a
     tensor in the dtype it was saved in, on ``device`` (the CPU by
-    default). Returns (tree, step)."""
+    default). ``shardings``: an optional tree of the same structure whose
+    leaves are ``sharding.NamedSharding`` (or None): those leaves are
+    distributed to their mesh and placements, each rank keeping its shard
+    of the saved whole (cross-mesh elastic restore). Returns (tree,
+    step)."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -159,6 +175,7 @@ def restore(path: str, target_tree, *, step: Optional[int] = None,
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
+    placed = dict(_flatten(shardings)) if shardings is not None else {}
     loaded = []
     for name, _ in _flatten(target_tree):
         arr = np.load(os.path.join(d, name + ".npy"))
@@ -167,7 +184,16 @@ def restore(path: str, target_tree, *, step: Optional[int] = None,
                              f"{list(arr.shape)} != manifest "
                              f"{manifest['leaves'][name]['shape']}")
         t = _from_host(arr)
-        loaded.append(t.to(device) if device is not None else t)
+        sharding = placed.get(name)
+        if sharding is not None:
+            from repro_torch.distributed.sharding import placements
+            mesh = sharding.mesh
+            t = distribute_tensor(t.to(mesh.device_type), mesh,
+                                  placements(mesh, sharding.spec),
+                                  src_data_rank=None)
+        elif device is not None:
+            t = t.to(device)
+        loaded.append(t)
     return _unflatten(target_tree, iter(loaded)), step
 
 

@@ -35,8 +35,9 @@ decode step moves the state (≈ 8.4 MB at B 8). PERF.md records the times
 against the bound.
 
 On a CPU tensor the wrapper runs the plain version
-(:func:`repro_torch.kernels.ref.wkv6_ref`); on a CUDA tensor it launches
-the kernel or raises. ``.launches`` counts launches.
+(:func:`repro_torch.kernels.ref.wkv6_ref`; on a fake one, the dry run's,
+the chunked plain form); on a CUDA tensor it launches the kernel or
+raises. ``.launches`` counts launches.
 
 Gradient: where grad mode is on and an input requires grad, the call on
 the card goes through :class:`_WKV6`, whose forward is the kernel and
@@ -129,6 +130,14 @@ def wkv6(r, k, v, w, u, state, *, chunk: int = 32):
     Returns (o (B, T, H, K) float32, final state (B, H, K, K) float32)."""
     _check_len(r, chunk)
     if r.device.type == "cpu":
+        from torch._subclasses.fake_tensor import FakeTensor
+        if isinstance(r, FakeTensor):
+            # a trace on fake tensors (the dry run) counts the chunked
+            # form, the kernel's own algorithm, as the JAX package's dry
+            # run traces its model's wkv6_chunked; the sequential form
+            # would trace T steps
+            return wkv6_chunked(r, k, v, w, u, state,
+                                chunk=min(chunk, r.shape[1]))
         return wkv6_ref(r, k, v, w, u, state)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for {r.device}")

@@ -1,6 +1,10 @@
-"""The trainer: real steps on one device, with checkpoint/restart fault
-tolerance and the data-stream state capture needed for exact resume. The
-port of ``repro.launch.train``, without a mesh.
+"""The trainer: real steps under a mesh (``make_test_mesh`` over the
+current process group, as the reference trainer runs under its test mesh),
+with checkpoint/restart fault tolerance and the data-stream state capture
+needed for exact resume. The port of ``repro.launch.train``. Without a
+process group it runs in a world of one rank of its own (gloo on the CPU,
+NCCL on the card; destroyed at the end): a (1, 1) mesh whose DTensors
+compute what one device computes.
 
     # on the card: llama3.2-1b at its published width, float32
     PYTHONPATH=src python -m repro_torch.launch.train --full-width \\
@@ -19,16 +23,36 @@ Without a card, ``device="cuda"`` raises.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.distributed.steps import build_train_step
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed.steps import (build_train_step, shard_opt_state,
+                                           shard_params)
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import model_zoo
 from repro_torch.train.data import DataConfig, SyntheticLMStream
 from repro_torch.train.optimizer import OptConfig, init_opt
+
+
+@contextlib.contextmanager
+def _world(dev: torch.device):
+    """The current process group, or a one-rank group of this process's
+    own for the call (gloo on the CPU, NCCL on the card)."""
+    if dist.is_initialized():
+        yield
+        return
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def train(arch: str, *, reduced: bool = True, steps: int = 50,
@@ -40,7 +64,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
     crash would) from ``model_zoo.init`` with seed 0 on the synthetic
     stream; resume from the latest checkpoint under ``ckpt_dir`` when
     ``resume``; save asynchronously every ``ckpt_every`` steps. Returns
-    (losses, params). Each logged line carries the step's wall time (to
+    (losses, params), the params whole on every rank. Each logged line carries the step's wall time (to
     the loss read back), its tokens/s and, on the card, the peak device
     memory."""
     cfg = get_config(arch)
@@ -48,15 +72,29 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
         cfg = cfg.reduced()
     params = model_zoo.init(cfg, 0, dtype, device=device)  # no card: raises
     dev = torch.device(device)
-    opt_state = init_opt(params)
+    with _world(dev):
+        return _train(cfg, params, dev, steps=steps, seq_len=seq_len,
+                      batch=batch, ckpt_dir=ckpt_dir, resume=resume,
+                      ckpt_every=ckpt_every, log_every=log_every, dtype=dtype,
+                      verbose=verbose, stop_after=stop_after, remat=remat,
+                      chunked_ce=chunked_ce)
+
+
+def _train(cfg, params, dev, *, steps, seq_len, batch, ckpt_dir, resume,
+           ckpt_every, log_every, dtype, verbose, stop_after, remat,
+           chunked_ce):
+    mesh = make_test_mesh(device_type=dev.type)
+    opt_state = shard_opt_state(cfg, mesh, init_opt(params))
+    params = shard_params(cfg, mesh, params)
     data = SyntheticLMStream(DataConfig(cfg.vocab_size, seq_len, batch))
     opt = OptConfig(total_steps=steps, warmup_steps=max(1, steps // 10))
-    step_fn = build_train_step(cfg, opt=opt, remat=remat,
+    step_fn = build_train_step(cfg, mesh, opt=opt, remat=remat,
                                chunked_ce=chunked_ce)
     start = 0
     if resume and ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        target = (params, opt_state, data.state_dict())
         (params, opt_state, data_state), start = ckpt.restore(
-            ckpt_dir, (params, opt_state, data.state_dict()), device=dev)
+            ckpt_dir, target, device=dev, shardings=sh.shardings_of(target))
         data.load_state_dict(data_state)
         if verbose:
             print(f"[train] resumed from step {start}")
@@ -93,7 +131,7 @@ def train(arch: str, *, reduced: bool = True, steps: int = 50,
                                 step=step + 1, async_=True)
     if pending is not None:
         pending.join()
-    return losses, params
+    return losses, sh.gather(params)
 
 
 def main(argv=None):

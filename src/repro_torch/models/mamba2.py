@@ -20,13 +20,16 @@ model. ``F.softplus`` returns x above 20 where JAX's has no threshold
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import matmul_f32
+from repro_torch.models.layers import (head_placements, local_map, matmul,
+                                       matmul_f32, split_heads)
 from repro_torch.models.transformer import TensorSpec, _normal
 
 F32 = torch.float32
@@ -225,7 +228,36 @@ def _conv_and_gates(cfg: ModelConfig, p, x, conv_state, conv):
     return z, xc, Bc, Cc, dt, A, new_conv
 
 
-def mamba_block_full(cfg: ModelConfig, p, x, conv_state, ssm_state):
+def _ssd(pctx, fn, args, **kw):
+    """``fn`` (the chunked scan or the one-token step) of (x, dt, A, B, C,
+    state); under a mesh on each rank's shard of the batch (data axes,
+    where it divides) and the heads (model axis, where H divides) inside
+    ``local_map``: the recurrence is independent per (b, h), B and C are
+    shared by the heads (their gradient a partial sum over the model
+    axis)."""
+    x = args[0]
+    if not isinstance(x, DTensor):
+        return fn(*args, **kw)
+    H = x.shape[-2]
+    hp = head_placements(pctx, x.shape[0], H, H)[0]        # (B, T, H, P)
+    hd = x.dim() - 2                                         # the head dim
+    x_pl = tuple(Shard(hd) if p == Shard(2) else p for p in hp)  # dt too
+    a_pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in hp)
+    bc_pl = tuple(Replicate() if p == Shard(2) else p for p in hp)
+    bc_grad = tuple(Partial() if p == Shard(2) else p for p in hp)
+    s_pl = tuple(Shard(1) if p == Shard(2) else p for p in hp)
+    a_grad = tuple(Partial() if p == Shard(0) else q
+                   for p, q in zip(hp, a_pl))
+    lm = local_map(partial(fn, **kw), out_placements=(x_pl, s_pl),
+                   in_placements=(x_pl, x_pl, a_pl, bc_pl, bc_pl, s_pl),
+                   in_grad_placements=(x_pl, x_pl, a_grad, bc_grad,
+                                       bc_grad, s_pl),
+                   device_mesh=pctx.mesh, redistribute_inputs=True)
+    return lm(*args)
+
+
+def mamba_block_full(cfg: ModelConfig, p, x, conv_state, ssm_state,
+                     pctx=None):
     """x (B, T, D) -> (out, (new_conv_state, new_ssm_state)). The chunk is
     ``min(chunk_size, T)`` and must divide T: a ragged T raises
     ``ValueError`` (JAX asserts)."""
@@ -239,14 +271,16 @@ def mamba_block_full(cfg: ModelConfig, p, x, conv_state, ssm_state):
     z, xc, Bc, Cc, dt, A, new_conv = _conv_and_gates(
         cfg, p, x, conv_state,
         lambda u, st, w, b: _causal_conv(u, st, w, b, s.d_conv, T))
-    xh = xc.reshape(B, T, H, P)
-    y, new_ssm = ssd_chunked(xh, dt, A, Bc, Cc, ssm_state, chunk)
+    xh = split_heads(xc, H)
+    y, new_ssm = _ssd(pctx, ssd_chunked, (xh, dt, A, Bc, Cc, ssm_state),
+                      chunk=chunk)
     y = y + p["D_skip"][None, None, :, None] * xh.to(F32)
     y = _rmsnorm_gated(y.reshape(B, T, di), z, p["gn_scale"])
-    return y.to(x.dtype) @ p["w_out"], (new_conv, new_ssm)
+    return matmul(y.to(x.dtype), p["w_out"]), (new_conv, new_ssm)
 
 
-def mamba_block_step(cfg: ModelConfig, p, x, conv_state, ssm_state):
+def mamba_block_step(cfg: ModelConfig, p, x, conv_state, ssm_state,
+                     pctx=None):
     """One-token decode. x (B, D) -> (out, (new_conv_state,
     new_ssm_state))."""
     s = cfg.ssm
@@ -254,8 +288,8 @@ def mamba_block_step(cfg: ModelConfig, p, x, conv_state, ssm_state):
     di, H, P = s.d_inner(D), s.n_heads(D), s.head_dim
     z, xc, Bc, Cc, dt, A, new_conv = _conv_and_gates(
         cfg, p, x, conv_state, _causal_conv_step)
-    xh = xc.reshape(B, H, P)
-    y, new_ssm = ssd_step(xh, dt, A, Bc, Cc, ssm_state)
+    xh = split_heads(xc, H)
+    y, new_ssm = _ssd(pctx, ssd_step, (xh, dt, A, Bc, Cc, ssm_state))
     y = y + p["D_skip"][None, :, None] * xh.to(F32)
     y = _rmsnorm_gated(y.reshape(B, di), z, p["gn_scale"])
-    return y.to(x.dtype) @ p["w_out"], (new_conv, new_ssm)
+    return matmul(y.to(x.dtype), p["w_out"]), (new_conv, new_ssm)

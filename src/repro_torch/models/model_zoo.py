@@ -3,9 +3,9 @@ the families of the assigned architectures (``dense``, ``moe``, ``rwkv6``,
 ``zamba2`` and ``whisper``).
 
     init(cfg, seed, dtype, device)              -> params
-    forward(cfg, params, batch, remat=False)    -> logits   (full sequence)
-    prefill(cfg, params, batch)                 -> (last_logits, cache)
-    decode(cfg, params, cache, tok, pos)        -> (logits, cache)
+    forward(cfg, params, batch, pctx, remat)    -> logits   (full sequence)
+    prefill(cfg, params, batch, pctx)           -> (last_logits, cache)
+    decode(cfg, params, cache, tok, pos, pctx)  -> (logits, cache)
     cache_specs(cfg, batch, max_len, dtype, enc_len=0)
                                                 -> TensorSpec per cache field
     cache_zeros(cfg, batch, max_len, dtype, enc_len=0, device)
@@ -20,18 +20,21 @@ config's ``n_frontend_tokens``, as in JAX. These are entry points: the
 device defaults to ``"cuda"`` and a run without a card raises; the CPU is
 asked for by name. ``forward``/``prefill``/``decode`` run where their
 tensors lie. The ``seed`` takes the place of JAX's ``PRNGKey``: torch
-draws other bits from it. The sharding argument ``pctx`` is not ported.
+draws other bits from it. ``pctx`` is the parallel context: under its
+mesh the params, batch and caches are DTensors (``distributed/
+sharding.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.models import rwkv6, whisper, zamba2
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParallelCtx
 from repro_torch.models.transformer import TensorSpec
 
 
@@ -66,39 +69,43 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, Any], *,
-            remat: bool = False):
+            pctx: Optional[ParallelCtx] = None, remat: bool = False):
     family = _family(cfg)
     if family == "lm":
-        return tf.lm_forward(cfg, params, batch["tokens"],
+        return tf.lm_forward(cfg, params, batch["tokens"], pctx=pctx,
                              embeds=batch.get("embeds"), remat=remat)
     if family == "rwkv6":
-        return rwkv6.rwkv_forward(cfg, params, batch["tokens"], remat=remat)
+        return rwkv6.rwkv_forward(cfg, params, batch["tokens"], pctx=pctx,
+                                  remat=remat)
     if family == "zamba2":
-        return zamba2.zamba_forward(cfg, params, batch["tokens"],
+        return zamba2.zamba_forward(cfg, params, batch["tokens"], pctx=pctx,
                                     remat=remat)
     return whisper.whisper_forward(cfg, params, batch["tokens"],
-                                   batch["frames"], remat=remat)
+                                   batch["frames"], pctx=pctx, remat=remat)
 
 
-def prefill(cfg: ModelConfig, params, batch: Dict[str, Any]):
+def prefill(cfg: ModelConfig, params, batch: Dict[str, Any], *,
+            pctx: Optional[ParallelCtx] = None):
     family = _family(cfg)
     if family == "lm":
-        return tf.lm_prefill(cfg, params, batch["tokens"],
+        return tf.lm_prefill(cfg, params, batch["tokens"], pctx=pctx,
                              embeds=batch.get("embeds"))
     if family == "rwkv6":
-        return rwkv6.rwkv_prefill(cfg, params, batch["tokens"])
+        return rwkv6.rwkv_prefill(cfg, params, batch["tokens"], pctx=pctx)
     if family == "zamba2":
-        return zamba2.zamba_prefill(cfg, params, batch["tokens"])
+        return zamba2.zamba_prefill(cfg, params, batch["tokens"], pctx=pctx)
     return whisper.whisper_prefill(cfg, params, batch["tokens"],
-                                   batch["frames"])
+                                   batch["frames"], pctx=pctx)
 
 
 _DECODE = {"lm": tf.lm_decode, "rwkv6": rwkv6.rwkv_decode,
            "zamba2": zamba2.zamba_decode, "whisper": whisper.whisper_decode}
 
 
-def decode(cfg: ModelConfig, params, cache, tokens, positions):
-    return _DECODE[_family(cfg)](cfg, params, cache, tokens, positions)
+def decode(cfg: ModelConfig, params, cache, tokens, positions, *,
+           pctx: Optional[ParallelCtx] = None):
+    return _DECODE[_family(cfg)](cfg, params, cache, tokens, positions,
+                                 pctx=pctx)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,

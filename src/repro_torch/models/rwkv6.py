@@ -11,12 +11,13 @@ functions held against JAX's.
 
 The layer ``scan`` becomes a Python loop over the stacked per-layer
 weights. ``rwkv_forward`` takes the serving arguments (``state``,
-``return_state``) and the training one, ``remat``; ``pctx`` (sharding)
-is not ported, nor is the JAX package's ``REPRO_PROBE_CHUNK`` override (a
-knob of its roofline probe). Training on the card differentiates through
-the kernel: ``ops.wkv``'s autograd Function recomputes the chunked plain
-form in its backward (``kernels/wkv6.py``). Dtypes follow the JAX model
-point for point: the
+``return_state``), the training one, ``remat``, and the parallel context
+``pctx``: under its mesh the recurrence runs ``ops.wkv`` on each rank's
+batch and heads inside ``local_map`` (``_wkv``). Not ported: the JAX
+package's ``REPRO_PROBE_CHUNK`` override (a knob of its roofline probe).
+Training on the card differentiates through the kernel: ``ops.wkv``'s
+autograd Function recomputes the chunked plain form in its backward
+(``kernels/wkv6.py``). Dtypes follow the JAX model point for point: the
 mixing and decay LoRAs accumulate in f32, r/k/v stay in the model dtype,
 the gate, the decay and the recurrence's output are f32, and ``w_base``,
 ``u`` and ``ln_x_scale`` are f32 leaves under a bf16 model.
@@ -24,16 +25,20 @@ the gate, the decay and the recurrence's output are f32, and ``w_base``,
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import wkv6_chunked  # noqa: F401  (re-export)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import matmul_f32, rms_norm
+from repro_torch.models.layers import (
+    ParallelCtx, constrain, dp_for, embed_lookup, head_placements,
+    local_map, matmul, matmul_f32, rms_norm, split_heads)
 from repro_torch.models.transformer import TensorSpec, _normal, layer_params
 
 F32 = torch.float32
@@ -154,7 +159,7 @@ def _dyn_mix(p, x, dx):
     """5-way data-dependent token-shift mix -> dict of mixed inputs."""
     base = x + dx * p["mu_x"].to(x.dtype)
     lora = torch.tanh(matmul_f32(base, p["mix_A"]))
-    r5 = lora.reshape(*lora.shape[:-1], 5, -1)
+    r5 = split_heads(lora, 5)
     offs = torch.einsum("btnr,nrd->nbtd", r5, p["mix_B"].to(F32))
     xf, dxf = x.to(F32), dx.to(F32)
     return {name: (xf + dxf * (p["mu"][i].to(F32) + offs[i])).to(x.dtype)
@@ -164,7 +169,8 @@ def _dyn_mix(p, x, dx):
 def _decay(p, xw):
     """Data-dependent decay w in (0,1): exp(-exp(base + lora(xw))), the
     pre-decay exponent clipped to [-20, 0.35] as in the JAX model."""
-    lora = torch.tanh(matmul_f32(xw, p["decay_A"])) @ p["decay_B"].to(F32)
+    lora = matmul(torch.tanh(matmul_f32(xw, p["decay_A"])),
+                  p["decay_B"].to(F32))
     return torch.exp(-torch.exp(torch.clamp(p["w_base"] + lora, -20.0,
                                             0.35)))
 
@@ -178,22 +184,44 @@ def _group_norm(o, scale, H):
     return o.reshape(*o.shape[:-2], -1) * scale
 
 
-def time_mix_full(cfg: ModelConfig, p, x, shift_in, wkv_state, chunk=32):
+def _wkv(pctx: Optional[ParallelCtx], r, k, v, w, u, state, chunk):
+    """``ops.wkv``; under a mesh on each rank's shard of the batch (data
+    axes, where it divides) and the heads (model axis, where H divides),
+    inside ``local_map``: the recurrence is independent per (b, h)."""
+    if not isinstance(r, DTensor):
+        return ops.wkv(r, k, v, w, u, state, chunk=chunk)
+    B, _, H, _ = r.shape
+    x_pl = head_placements(pctx, B, H, H)[0]              # (B, T, H, K)
+    s_pl = tuple(Shard(1) if p == Shard(2) else p for p in x_pl)  # (B,H,..)
+    u_pl = tuple(Shard(0) if p == Shard(2) else Replicate() for p in x_pl)
+    # u is shared by the batch: each data rank's gradient covers its rows
+    u_grad = tuple(Partial() if p == Shard(0) else q
+                   for p, q in zip(x_pl, u_pl))
+    fn = local_map(partial(ops.wkv, chunk=chunk),
+                   out_placements=(x_pl, s_pl),
+                   in_placements=(x_pl, x_pl, x_pl, x_pl, u_pl, s_pl),
+                   in_grad_placements=(x_pl, x_pl, x_pl, x_pl, u_grad, s_pl),
+                   device_mesh=pctx.mesh, redistribute_inputs=True)
+    return fn(r, k, v, w, u, state)
+
+
+def time_mix_full(cfg: ModelConfig, p, x, shift_in, wkv_state, chunk=32,
+                  pctx: Optional[ParallelCtx] = None):
     """Full-sequence time mix. x (B,T,D). Returns (out, last_x, new_state).
     T must be at most ``chunk`` or a multiple of it (the reference's
     contract); the recurrence runs in ``ops.wkv``."""
     B, T, D = x.shape
     H, K = _heads(cfg)
     m = _dyn_mix(p, x, _shifted(x, shift_in))
-    r = (m["r"] @ p["wr"]).reshape(B, T, H, K)
-    k = (m["k"] @ p["wk"]).reshape(B, T, H, K)
-    v = (m["v"] @ p["wv"]).reshape(B, T, H, K)
-    g = F.silu((m["g"] @ p["wg"]).to(F32))
-    w = _decay(p, m["w"]).reshape(B, T, H, K)
+    r = split_heads(matmul(m["r"], p["wr"]), H)
+    k = split_heads(matmul(m["k"], p["wk"]), H)
+    v = split_heads(matmul(m["v"], p["wv"]), H)
+    g = F.silu(matmul(m["g"], p["wg"]).to(F32))
+    w = split_heads(_decay(p, m["w"]), H)
     u = p["u"].reshape(H, K)
-    o, new_state = ops.wkv(r, k, v, w, u, wkv_state, chunk=min(chunk, T))
+    o, new_state = _wkv(pctx, r, k, v, w, u, wkv_state, min(chunk, T))
     o = _group_norm(o, p["ln_x_scale"], H) * g
-    out = o.to(x.dtype) @ p["wo"]
+    out = matmul(o.to(x.dtype), p["wo"])
     return out, x[:, -1], new_state
 
 
@@ -213,7 +241,7 @@ def channel_mix(p, x, shift_in):
     xk = x + dx * p["cm_mu_k"].to(x.dtype)
     xr = x + dx * p["cm_mu_r"].to(x.dtype)
     k = torch.square(torch.relu(matmul_f32(xk, p["cm_wk"])))
-    kv = k.to(x.dtype) @ p["cm_wv"]
+    kv = matmul(k.to(x.dtype), p["cm_wv"])
     out = torch.sigmoid(matmul_f32(xr, p["cm_wr"])).to(x.dtype) * kv
     last = x[:, -1]
     return (out[:, 0], last) if single else (out, last)
@@ -223,18 +251,31 @@ def channel_mix(p, x, shift_in):
 # model-level forward
 # ---------------------------------------------------------------------------
 
-def _layer(cfg: ModelConfig, lp, x, att_shift, ffn_shift, wkv_state):
+def _layer(cfg: ModelConfig, lp, x, att_shift, ffn_shift, wkv_state,
+           pctx=None):
     """One block: time mix, then channel mix, each a residual. Returns
     (x, att_last, ffn_last, wkv_new)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    att, att_last, wkv_new = time_mix_full(cfg, lp, h, att_shift, wkv_state)
+    att, att_last, wkv_new = time_mix_full(cfg, lp, h, att_shift, wkv_state,
+                                           pctx=pctx)
     x = x + att
     h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
     ffn, ffn_last = channel_mix(lp, h2, ffn_shift)
     return x + ffn, att_last, ffn_last, wkv_new
 
 
+def _zero_state(cfg: ModelConfig, B: int, x, pctx) -> RWKVState:
+    """Zeros of the carried state; under a mesh, DTensors with the
+    placements of ``sharding.cache_specs``."""
+    if pctx is None or pctx.mesh is None:
+        return RWKVState.zeros(cfg, B, x.dtype, x.device)
+    from repro_torch.distributed import sharding as sh
+    return sh.zeros(RWKVState.specs(cfg, B, x.dtype), pctx.mesh,
+                    sh.cache_specs(cfg, pctx.mesh, B))
+
+
 def rwkv_forward(cfg: ModelConfig, params, tokens, *,
+                 pctx: Optional[ParallelCtx] = None,
                  state: Optional[RWKVState] = None,
                  return_state: bool = False, remat: bool = False):
     """tokens (B, T) -> logits (B, T, V) float32; optionally the carried
@@ -243,13 +284,14 @@ def rwkv_forward(cfg: ModelConfig, params, tokens, *,
     in the backward (``torch.utils.checkpoint``, non-reentrant: the
     counterpart of ``jax.checkpoint``)."""
     B, T = tokens.shape
-    x = F.embedding(tokens.long(), params["embed"])   # see tf._embed
+    x = embed_lookup(tokens, params["embed"])   # see tf._embed
+    x = constrain(x, pctx, dp_for(pctx, x.shape[0]), None, None)
     if state is None:
-        state = RWKVState.zeros(cfg, B, x.dtype, x.device)
+        state = _zero_state(cfg, B, x, pctx)
     att_s, ffn_s, wkv_s = [], [], []
     for l in range(cfg.n_layers):
         args = (cfg, layer_params(params["layers"], l), x, state.att_shift[l],
-                state.ffn_shift[l], state.wkv[l])
+                state.ffn_shift[l], state.wkv[l], pctx)
         if remat:
             x, att_last, ffn_last, wkv_new = checkpoint(
                 _layer, *args, use_reentrant=False)
@@ -266,16 +308,18 @@ def rwkv_forward(cfg: ModelConfig, params, tokens, *,
     return logits
 
 
-def rwkv_prefill(cfg: ModelConfig, params, tokens):
+def rwkv_prefill(cfg: ModelConfig, params, tokens, *,
+                 pctx: Optional[ParallelCtx] = None):
     """tokens (B, T) -> (last-position logits (B, V), state)."""
-    logits, st = rwkv_forward(cfg, params, tokens, return_state=True)
+    logits, st = rwkv_forward(cfg, params, tokens, pctx=pctx,
+                              return_state=True)
     return logits[:, -1], st
 
 
 def rwkv_decode(cfg: ModelConfig, params, state: RWKVState, tokens,
-                positions=None):
+                positions=None, *, pctx: Optional[ParallelCtx] = None):
     """tokens (B,) -> (logits (B,V), new state). positions unused (the
     state carries the sequence)."""
-    logits, st = rwkv_forward(cfg, params, tokens[:, None], state=state,
-                              return_state=True)
+    logits, st = rwkv_forward(cfg, params, tokens[:, None], pctx=pctx,
+                              state=state, return_state=True)
     return logits[:, -1], st

@@ -10,24 +10,30 @@ functional, donated cache updates become **in-place** writes into the
 cache tensors: ``lm_step`` and every ``lm_*_paged`` function mutate
 ``cache.k`` / ``cache.v`` and still return the cache, so call sites read
 like the reference. An ``moe`` layer's FFN is ``layers.moe_ffn`` over the
-layer's own (padded) token set, as in JAX; its expert-parallel form
-(``moe_ffn_ep_local``) is not ported.
+layer's own (padded) token set, as in JAX.
+
+Every function takes the parallel context ``pctx`` and makes the JAX
+package's ``constrain`` calls. Under its mesh the params, tokens and
+caches are DTensors (``distributed/sharding.py`` places them), the
+kernels run on local shards (``layers.dense_prefill_attention``,
+``layers.paged_*``), an ``ep`` MoE layer runs ``moe_ffn_ep_local`` in
+``local_map`` and the KV writes go through ``layers.write_kv``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (F32, apply_norm, attention, attn_out,
-                                       attn_qkv, dense_prefill_attention,
-                                       matmul_f32, mlp, moe_ffn,
-                                       paged_decode_attention,
-                                       paged_prefill_attention)
+from repro_torch.models.layers import (
+    F32, ParallelCtx, apply_norm, attention, attn_out, attn_qkv, constrain,
+    dense_prefill_attention, dp_for, embed_lookup, matmul_f32, mlp, moe_ffn,
+    moe_ffn_ep, paged_decode_attention, paged_prefill_attention, paged_write,
+    replicated_like, write_kv)
 
 class TensorSpec(NamedTuple):
     """Shape and dtype of a tensor not yet allocated (the port's
@@ -150,10 +156,11 @@ def _window(cfg: ModelConfig, is_local: bool) -> Optional[int]:
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ModelConfig, params, tokens, embeds=None):
-    # F.embedding, not indexing: its backward sums a token's rows in a
-    # fixed order (indexing's accumulating scatter does not on the CPU),
-    # so a resumed training run repeats the uninterrupted one bit for bit
-    x = F.embedding(tokens.long(), params["embed"])
+    # F.embedding (in embed_lookup), not indexing: its backward sums a
+    # token's rows in a fixed order (indexing's accumulating scatter does
+    # not on the CPU), so a resumed training run repeats the uninterrupted
+    # one bit for bit
+    x = embed_lookup(tokens, params["embed"])
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -171,21 +178,34 @@ def _unembed(cfg: ModelConfig, params, x):
     return logits
 
 
-def _ffn_residual(cfg: ModelConfig, lp, x, o):
+def _moe_block(cfg: ModelConfig, lp, h, pctx: Optional[ParallelCtx]):
+    if pctx is not None and pctx.ep_axis is not None and pctx.mesh is not None:
+        return moe_ffn_ep(cfg, lp["moe"], h, pctx)
+    token_shard = "moe_replicated" in os.environ.get("REPRO_OPT", "")
+    return moe_ffn(cfg, lp["moe"], h, pctx, token_shard=token_shard)
+
+
+def _ffn_residual(cfg: ModelConfig, lp, x, o, pctx=None, pin: bool = False):
     """Residual add of the attention output, then the MLP (or MoE)
-    sublayer."""
+    sublayer. ``pin``: constrain the residual stream to the data axes
+    after each add (the full-sequence layer's ``constrain`` calls)."""
     o = attn_out(lp["attn"], o)
     if cfg.post_sublayer_norm:
         o = apply_norm(cfg, lp["ln_post_attn"], o)
     x = x + o
+    if pin:
+        x = constrain(x, pctx, dp_for(pctx, x.shape[0]), None, None)
     h2 = apply_norm(cfg, lp["ln_mlp"], x)
     if cfg.family == "moe":
-        f = moe_ffn(cfg, lp["moe"], h2)
+        f = _moe_block(cfg, lp, h2, pctx)
     else:
-        f = mlp(cfg, lp["mlp"], h2)
+        f = mlp(cfg, lp["mlp"], h2, pctx)
     if cfg.post_sublayer_norm:
         f = apply_norm(cfg, lp["ln_post_mlp"], f)
-    return x + f
+    x = x + f
+    if pin:
+        x = constrain(x, pctx, dp_for(pctx, x.shape[0]), None, None)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -207,47 +227,60 @@ class KVCache:
                    torch.zeros(shp, dtype=dtype, device=device))
 
 
-def _layer_full(cfg: ModelConfig, x, lp, is_local: bool, positions):
-    """Full-sequence layer (train / prefill from position 0). Returns
-    (x, (k, v))."""
+def _layer_full(cfg: ModelConfig, x, lp, is_local: bool, positions, pctx,
+                given: bool):
+    """Full-sequence layer (train / prefill). Returns (x, (k, v)). Rows at
+    ``0..S-1`` (``given`` False) attend through the flash kernel; rows at
+    ``given`` positions through the plain ``layers.attention``."""
     h = apply_norm(cfg, lp["ln_attn"], x)
     q, k, v = attn_qkv(cfg, lp["attn"], h, positions)
-    o = dense_prefill_attention(q, k, v, window=_window(cfg, is_local),
-                                softcap=cfg.attn_logit_softcap, q_offset=0)
-    return _ffn_residual(cfg, lp, x, o), (k, v)
+    if given:
+        o = attention(q, k, v, positions, positions, causal=True,
+                      window=cfg.sliding_window, is_local=is_local,
+                      softcap=cfg.attn_logit_softcap)
+    else:
+        o = dense_prefill_attention(q, k, v, window=_window(cfg, is_local),
+                                    softcap=cfg.attn_logit_softcap,
+                                    q_offset=0, pctx=pctx)
+    return _ffn_residual(cfg, lp, x, o, pctx, pin=True), (k, v)
 
 
-def lm_forward(cfg: ModelConfig, params, tokens, *, embeds=None,
+def lm_forward(cfg: ModelConfig, params, tokens, *,
+               pctx: Optional[ParallelCtx] = None, embeds=None,
                positions=None, return_cache: bool = False,
                remat: bool = False, return_hidden: bool = False):
     """tokens (B, S) -> logits (B, S_total, V) float32; optionally the
     per-layer KV as a ``KVCache`` of length S_total.
 
     ``embeds`` (B, N, D) are prepended to the token embeddings (the
-    multimodal front end's stub tokens), so S_total = N + S. Every row
-    runs at ``0..S_total-1`` through the flash attention (``q_offset`` 0,
-    the kernel on the card). ``remat`` recomputes each layer in the
-    backward (``torch.utils.checkpoint``, non-reentrant: the counterpart of
-    ``jax.checkpoint(policy=nothing_saveable)``), ``return_hidden``
-    returns the final-norm hidden states (B, S_total, D) instead of the
-    logits. Not ported: ``positions`` (no caller passes it; rows off
-    ``0..S_total-1`` cannot reach the kernel, which takes one host
-    offset) and the sharding argument ``pctx``."""
-    if positions is not None:
-        raise NotImplementedError("lm_forward: given positions are not "
-                                  "ported; rows run at 0..S-1")
+    multimodal front end's stub tokens), so S_total = N + S. Without
+    ``positions`` every row runs at ``0..S_total-1`` through the flash
+    attention (``q_offset`` 0, the kernel on the card). With
+    ``positions`` (B, S_total) int32, RoPE and the causal mask read them
+    and the attention is the plain ``layers.attention`` (the JAX
+    package's own function), since the kernel takes one host offset for
+    all rows; no serving path passes them. ``remat`` recomputes each layer
+    in the backward (``torch.utils.checkpoint``, non-reentrant: the
+    counterpart of ``jax.checkpoint(policy=nothing_saveable)``),
+    ``return_hidden`` returns the final-norm hidden states (B, S_total, D)
+    instead of the logits."""
     x = _embed(cfg, params, tokens, embeds)
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    given = positions is not None
+    if not given:
+        positions = replicated_like(x, torch.arange(
+            S, dtype=torch.int32, device=x.device).expand(B, S))
+    x = constrain(x, pctx, dp_for(pctx, B), None, None)
     ks, vs = [], []
     for l, is_local in enumerate(layer_kind_flags(cfg)):
         lp = layer_params(params["layers"], l)
         if remat:
             x, (k, v) = checkpoint(_layer_full, cfg, x, lp, is_local,
-                                   positions, use_reentrant=False)
+                                   positions, pctx, given,
+                                   use_reentrant=False)
         else:
-            x, (k, v) = _layer_full(cfg, x, lp, is_local, positions)
+            x, (k, v) = _layer_full(cfg, x, lp, is_local, positions, pctx,
+                                    given)
         if return_cache:
             ks.append(k)
             vs.append(v)
@@ -255,22 +288,27 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, embeds=None,
     if return_hidden:
         return x
     logits = _unembed(cfg, params, x)
+    logits = constrain(logits, pctx, dp_for(pctx, B), None,
+                       pctx.tp_axis if pctx else None)
     if return_cache:
         return logits, KVCache(torch.stack(ks), torch.stack(vs))
     return logits
 
 
-def lm_prefill(cfg: ModelConfig, params, tokens, *, embeds=None):
+def lm_prefill(cfg: ModelConfig, params, tokens, *,
+               pctx: Optional[ParallelCtx] = None, embeds=None,
+               positions=None):
     """tokens (B, S) -> (last-position logits (B, V), KVCache of length
     S_total)."""
-    logits, cache = lm_forward(cfg, params, tokens, embeds=embeds,
-                               return_cache=True)
+    logits, cache = lm_forward(cfg, params, tokens, pctx=pctx, embeds=embeds,
+                               positions=positions, return_cache=True)
     return logits[:, -1], cache
 
 
 def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
             positions=None, *, q_offset: Optional[int] = None,
-            n_real: Optional[int] = None):
+            n_real: Optional[int] = None,
+            pctx: Optional[ParallelCtx] = None):
     """An incremental step against the dense cache, written in place.
     tokens: (B, C) int32. Every layer writes its new KV at the step's
     positions (also its RoPE positions) and then attends over the cache
@@ -308,21 +346,20 @@ def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
         positions[0, :n_real] = torch.arange(q_offset, q_offset + n_real,
                                              dtype=torch.int32,
                                              device=tokens.device)
+        positions = replicated_like(tokens, positions)
     x = _embed(cfg, params, tokens)                   # (B, C, D)
+    x = constrain(x, pctx, dp_for(pctx, B), None, None)
     q_pos = positions
-    pos = positions.long()
-    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
     if q_offset is None:
-        kv_pos = torch.arange(Smax, dtype=positions.dtype,
-                              device=x.device).expand(B, Smax)
+        kv_pos = replicated_like(x, torch.arange(
+            Smax, dtype=positions.dtype, device=x.device).expand(B, Smax))
         kv_valid = kv_pos <= positions.max(dim=1, keepdim=True).values
     for l, is_local in enumerate(layer_kind_flags(cfg)):
         lp = layer_params(params["layers"], l)
         h = apply_norm(cfg, lp["ln_attn"], x)
         q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
-        k_l, v_l = cache.k[l], cache.v[l]             # (B, Smax, Hkv, D)
-        k_l.index_put_((b_idx, pos), k_new)
-        v_l.index_put_((b_idx, pos), v_new)
+        k_l = write_kv(cache.k[l], positions, k_new)  # (B, Smax, Hkv, D)
+        v_l = write_kv(cache.v[l], positions, v_new)
         if q_offset is None:
             o = attention(q, k_l, v_l, q_pos, kv_pos, kv_valid=kv_valid,
                           causal=True, window=cfg.sliding_window,
@@ -331,16 +368,17 @@ def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
             o = dense_prefill_attention(q, k_l, v_l,
                                         window=_window(cfg, is_local),
                                         softcap=cfg.attn_logit_softcap,
-                                        q_offset=q_offset)
-        x = _ffn_residual(cfg, lp, x, o)
+                                        q_offset=q_offset, pctx=pctx)
+        x = _ffn_residual(cfg, lp, x, o, pctx)
     x = apply_norm(cfg, params["ln_final"], x)
     return _unembed(cfg, params, x), cache
 
 
-def lm_decode(cfg: ModelConfig, params, cache: KVCache, tokens, positions):
+def lm_decode(cfg: ModelConfig, params, cache: KVCache, tokens, positions,
+              *, pctx: Optional[ParallelCtx] = None):
     """tokens (B,), positions (B,) -> (logits (B, V) float32, cache)."""
     logits, cache = lm_step(cfg, params, cache, tokens[:, None],
-                            positions[:, None])
+                            positions[:, None], pctx=pctx)
     return logits[:, 0], cache
 
 
@@ -384,7 +422,8 @@ class WindowedKVCache:
 
 
 def lm_decode_windowed(cfg: ModelConfig, params, cache: WindowedKVCache,
-                       tokens, positions):
+                       tokens, positions, *,
+                       pctx: Optional[ParallelCtx] = None):
     """Single-token decode with ring-buffered local layers: tokens (B,),
     positions (B,) -> (logits (B, V) float32, cache). Exact semantics:
     slot i of the ring holds the most recent position p <= pos with
@@ -397,23 +436,23 @@ def lm_decode_windowed(cfg: ModelConfig, params, cache: WindowedKVCache,
     Smax = cache.k_glob.shape[2]
     x = _embed(cfg, params, tokens[:, None])
     dev = x.device
-    b_idx = torch.arange(B, device=dev)
     q_pos = positions[:, None]
-    slot = torch.arange(W, dtype=positions.dtype, device=dev)
+    slot = replicated_like(x, torch.arange(W, dtype=positions.dtype,
+                                           device=dev))
     ring_pos = q_pos - ((q_pos - slot[None]) % W)      # floor mod, as jnp's
     ring_valid = ring_pos >= 0
-    kv_pos_g = torch.arange(Smax, dtype=positions.dtype,
-                            device=dev).expand(B, Smax)
+    kv_pos_g = replicated_like(x, torch.arange(
+        Smax, dtype=positions.dtype, device=dev).expand(B, Smax))
     kv_valid_g = kv_pos_g <= q_pos
 
     def sublayer(x, lp, k_l, v_l, kv_pos, kv_valid, write_pos):
         h = apply_norm(cfg, lp["ln_attn"], x)
         q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
-        k_l.index_put_((b_idx, write_pos.long()), k_new[:, 0])
-        v_l.index_put_((b_idx, write_pos.long()), v_new[:, 0])
+        write_kv(k_l, write_pos[:, None], k_new)
+        write_kv(v_l, write_pos[:, None], v_new)
         o = attention(q, k_l, v_l, q_pos, kv_pos, kv_valid=kv_valid,
                       causal=True, softcap=cfg.attn_logit_softcap)
-        return _ffn_residual(cfg, lp, x, o)
+        return _ffn_residual(cfg, lp, x, o, pctx)
 
     for i in range(cfg.n_layers // 2):
         x = sublayer(x, layer_params(params["layers"], 2 * i),
@@ -464,7 +503,7 @@ class PagedKVCache:
 
 def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
                     positions, block_tables, lengths, write_pages,
-                    write_offsets):
+                    write_offsets, *, pctx: Optional[ParallelCtx] = None):
     """One decode step against the global page pool.
 
     tokens/positions: (B,) int32 (absolute positions for RoPE);
@@ -479,6 +518,7 @@ def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     if not supports_paged(cfg):
         raise ValueError("paged decode: unsupported attention variant")
     x = _embed(cfg, params, tokens[:, None])          # (B, 1, D)
+    x = constrain(x, pctx, dp_for(pctx, tokens.shape[0]), None, None)
     q_pos = positions[:, None]
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
@@ -488,14 +528,15 @@ def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
             q[:, 0].contiguous(), cache.k[l], cache.v[l], block_tables,
             lengths, k_new=k_new[:, 0].contiguous(),
             v_new=v_new[:, 0].contiguous(), write_pages=write_pages,
-            write_offsets=write_offsets)
-        x = _ffn_residual(cfg, lp, x, o[:, None])
+            write_offsets=write_offsets, pctx=pctx)
+        x = _ffn_residual(cfg, lp, x, o[:, None], pctx)
     x = apply_norm(cfg, params["ln_final"], x)
     return _unembed(cfg, params, x[:, 0]), cache
 
 
 def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
-                     positions, table, write_pages, write_offsets, kv_len):
+                     positions, table, write_pages, write_offsets, kv_len,
+                     *, pctx: Optional[ParallelCtx] = None):
     """Chunked prefill of ONE sequence against the page pool, gather-free.
 
     tokens/positions: (1, C) absolute positions; padded lanes sit at
@@ -513,21 +554,21 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     if not supports_paged(cfg):
         raise ValueError("paged prefill: unsupported attention variant")
     x = _embed(cfg, params, tokens)                   # (1, C, D)
+    x = constrain(x, pctx, dp_for(pctx, 1), None, None)
     q_pos = positions
     q_offset = positions[:, 0].to(torch.int32).contiguous()   # (1,)
-    kv_len_b = torch.as_tensor(kv_len, dtype=torch.int32,
-                               device=x.device).reshape(1)
+    kv_len_b = replicated_like(x, torch.as_tensor(
+        kv_len, dtype=torch.int32, device=x.device)).reshape(1)
     table_b = table.to(torch.int32).reshape(1, -1).contiguous()
-    wp, wo = write_pages.long(), write_offsets.long()
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
         h = apply_norm(cfg, lp["ln_attn"], x)
         q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
-        k_l, v_l = cache.k[l], cache.v[l]
-        k_l.index_put_((wp, wo), k_new[0])
-        v_l.index_put_((wp, wo), v_new[0])
-        o = paged_prefill_attention(q, k_l, v_l, table_b, kv_len_b, q_offset)
-        x = _ffn_residual(cfg, lp, x, o)
+        k_l = paged_write(cache.k[l], write_pages, write_offsets, k_new[0])
+        v_l = paged_write(cache.v[l], write_pages, write_offsets, v_new[0])
+        o = paged_prefill_attention(q, k_l, v_l, table_b, kv_len_b, q_offset,
+                                    pctx)
+        x = _ffn_residual(cfg, lp, x, o, pctx)
     x = apply_norm(cfg, params["ln_final"], x)
     return _unembed(cfg, params, x), cache
 
@@ -536,7 +577,8 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
                    p_tokens, p_positions, p_tables, p_write_pages,
                    p_write_offsets, p_kv_lens, p_last_idx,
                    d_tokens, d_positions, d_tables, d_lengths,
-                   d_write_pages, d_write_offsets):
+                   d_write_pages, d_write_offsets, *,
+                   pctx: Optional[ParallelCtx] = None):
     """ONE mixed continuous-batching iteration against the page pool:
     ``P`` chunked-prefill packs (in order, each updating the pool in place)
     followed by ``B`` one-token decode lanes.
@@ -561,7 +603,7 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     for j in range(p_tokens.shape[0]):
         logits, cache = lm_prefill_paged(
             cfg, params, cache, p_tokens[j], p_positions[j], p_tables[j],
-            p_write_pages[j], p_write_offsets[j], p_kv_lens[j])
+            p_write_pages[j], p_write_offsets[j], p_kv_lens[j], pctx=pctx)
         # a one-element index tensor, not a 0-d one: indexing with a 0-d
         # CUDA tensor reads it back to the host (a sync per pack)
         last = p_last_idx[j:j + 1].long()
@@ -571,7 +613,8 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     if d_tokens.shape[0] > 0:
         logits, cache = lm_decode_paged(cfg, params, cache, d_tokens,
                                         d_positions, d_tables, d_lengths,
-                                        d_write_pages, d_write_offsets)
+                                        d_write_pages, d_write_offsets,
+                                        pctx=pctx)
         d_next = torch.argmax(logits, dim=-1).to(torch.int32)
     else:
         d_next = torch.zeros((0,), dtype=torch.int32, device=dev)
@@ -580,7 +623,8 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
 
 def lm_prefill_paged_gather(cfg: ModelConfig, params, cache: PagedKVCache,
                             tokens, positions, table, write_pages,
-                            write_offsets):
+                            write_offsets, *,
+                            pctx: Optional[ParallelCtx] = None):
     """Legacy chunked prefill: gather the lease into a dense view, run the
     dense ``lm_step`` on it, scatter the chunk's KV back.
 
@@ -610,7 +654,7 @@ def lm_prefill_paged_gather(cfg: ModelConfig, params, cache: PagedKVCache,
         raise ValueError("positions must run from the chunk's start, the "
                          f"padded lanes at {S - 1}: {pos}")
     logits, dense = lm_step(cfg, params, dense, tokens, q_offset=start,
-                            n_real=n_real)
+                            n_real=n_real, pctx=pctx)
     rows = positions[0].long()
     wp, wo = write_pages.long(), write_offsets.long()
     cache.k[:, wp, wo] = dense.k[:, 0, rows]

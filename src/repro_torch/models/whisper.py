@@ -18,22 +18,25 @@ one-row cross-attention goes the same way. ``whisper_decode`` writes the
 new token's K/V into the self cache **in place** (a position past the
 cache's end, which JAX drops, raises here or trips a device assert, so
 callers pad the cache). The layer ``scan`` becomes a loop over the
-stacked weights. Not ported: the sharding argument ``pctx``.
+stacked weights. Every function takes the parallel context ``pctx``:
+under its mesh the flash kernel runs on each rank's shard
+(``layers.dense_prefill_attention``) and the self K/V writes go through
+``layers.write_kv``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (F32, apply_norm, attention, attn_out,
-                                       attn_qkv, dense_prefill_attention,
-                                       matmul_f32, mlp)
+from repro_torch.models.layers import (
+    F32, ParallelCtx, apply_norm, attention, attn_out, attn_qkv, constrain,
+    dense_prefill_attention, dp_for, embed_lookup, matmul, matmul_f32, mlp,
+    replicated_like, split_heads, write_kv)
 from repro_torch.models.transformer import (TensorSpec, _attn_params,
                                             _mlp_params, _norm_params,
                                             _normal, layer_params)
@@ -100,18 +103,21 @@ def init_whisper(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
-def encode(cfg: ModelConfig, params, frames):
+def encode(cfg: ModelConfig, params, frames, *,
+           pctx: Optional[ParallelCtx] = None):
     """frames: (B, T_enc, D) precomputed frame embeddings (the stub front
     end) -> the encoder output (B, T_enc, D)."""
     B, T, D = frames.shape
-    x = frames + _sinusoid(T, D, frames.device).to(frames.dtype)[None]
+    x = frames + replicated_like(frames, _sinusoid(
+        T, D, frames.device).to(frames.dtype)[None])
+    x = constrain(x, pctx, dp_for(pctx, x.shape[0]), None, None)
     for l in range(cfg.n_enc_layers):
         lp = layer_params(params["enc_layers"], l)
         h = apply_norm(cfg, lp["ln_attn"], x)
         q, k, v = attn_qkv(cfg, lp["attn"], h, None, use_rope=False)
-        x = x + attn_out(lp["attn"], dense_prefill_attention(q, k, v,
-                                                             causal=False))
-        x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln_mlp"], x))
+        x = x + attn_out(lp["attn"], dense_prefill_attention(
+            q, k, v, causal=False, pctx=pctx))
+        x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln_mlp"], x), pctx)
     return apply_norm(cfg, params["ln_enc_final"], x)
 
 
@@ -122,11 +128,11 @@ def _query(cfg: ModelConfig, p, x):
     q = matmul_f32(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(F32)
-    return q.reshape(B, S, cfg.n_heads, cfg.head_dim_).to(x.dtype)
+    return split_heads(q, cfg.n_heads).to(x.dtype)
 
 
 def _dec_layer(cfg: ModelConfig, lp, x, positions, self_kv, cross_kv, *,
-               pos_write=None, kv_pos=None, kv_valid=None):
+               pos_write=None, kv_pos=None, kv_valid=None, pctx=None):
     """One decoder layer; ``self_kv``/``cross_kv`` are (k, v) pairs. Without
     ``pos_write`` (full sequence) the self K/V are the layer's own and
     every attention runs through the flash kernel; with it (decode, one
@@ -137,12 +143,10 @@ def _dec_layer(cfg: ModelConfig, lp, x, positions, self_kv, cross_kv, *,
     q, k_new, v_new = attn_qkv(cfg, lp["self_attn"], h, None, use_rope=False)
     if pos_write is None:
         k_c, v_c = k_new, v_new
-        o = dense_prefill_attention(q, k_c, v_c)
+        o = dense_prefill_attention(q, k_c, v_c, pctx=pctx)
     else:
-        k_c, v_c = self_kv
-        slot = (torch.arange(B, device=x.device), pos_write.long())
-        k_c.index_put_(slot, k_new[:, 0])
-        v_c.index_put_(slot, v_new[:, 0])
+        k_c = write_kv(self_kv[0], pos_write[:, None], k_new)
+        v_c = write_kv(self_kv[1], pos_write[:, None], v_new)
         o = attention(q, k_c, v_c, positions, kv_pos, kv_valid=kv_valid,
                       causal=True)
     x = x + attn_out(lp["self_attn"], o)
@@ -150,10 +154,11 @@ def _dec_layer(cfg: ModelConfig, lp, x, positions, self_kv, cross_kv, *,
     qc = _query(cfg, lp["cross_attn"], hc)
     ck, cv = cross_kv
     if pos_write is None:
-        o = dense_prefill_attention(qc, ck, cv, causal=False)
+        o = dense_prefill_attention(qc, ck, cv, causal=False, pctx=pctx)
     else:
-        enc_pos = torch.arange(ck.shape[1], dtype=positions.dtype,
-                               device=x.device).expand(B, ck.shape[1])
+        enc_pos = replicated_like(x, torch.arange(
+            ck.shape[1], dtype=positions.dtype,
+            device=x.device).expand(B, ck.shape[1]))
         o = attention(qc, ck, cv, positions, enc_pos, causal=False)
     x = x + attn_out(lp["cross_attn"], o)
     x = x + mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln_mlp"], x))
@@ -164,31 +169,33 @@ def _cross_kv(cfg: ModelConfig, lp, enc_out):
     """One layer's cross K/V from the encoder output (plain products in the
     model dtype, as JAX's einsums)."""
     B, T, _ = enc_out.shape
-    shape = (B, T, cfg.n_kv_heads, cfg.head_dim_)
-    return (enc_out @ lp["cross_attn"]["wk"]).reshape(shape), \
-        (enc_out @ lp["cross_attn"]["wv"]).reshape(shape)
+    return split_heads(matmul(enc_out, lp["cross_attn"]["wk"]),
+                       cfg.n_kv_heads), \
+        split_heads(matmul(enc_out, lp["cross_attn"]["wv"]),
+                    cfg.n_kv_heads)
 
 
-def _dec_body(cfg: ModelConfig, lp, x, enc_out):
+def _dec_body(cfg: ModelConfig, lp, x, enc_out, pctx=None):
     ck, cv = _cross_kv(cfg, lp, enc_out)
-    x, (k, v) = _dec_layer(cfg, lp, x, None, None, (ck, cv))
+    x, (k, v) = _dec_layer(cfg, lp, x, None, None, (ck, cv), pctx=pctx)
     return x, (k, v, ck, cv)
 
 
 def whisper_forward(cfg: ModelConfig, params, dec_tokens, frames, *,
+                    pctx: Optional[ParallelCtx] = None,
                     return_cache: bool = False, remat: bool = False):
     """Teacher-forced forward: frames (B, T_enc, D), dec_tokens (B, T_dec)
     with T_dec <= ``max_target_len`` -> logits (B, T_dec, V) float32;
     optionally the ``EncDecCache`` (self K/V of length T_dec). ``remat``
     recomputes each decoder layer in the backward, as JAX checkpoints its
     decoder body."""
-    enc_out = encode(cfg, params, frames)
+    enc_out = encode(cfg, params, frames, pctx=pctx)
     B, Tdec = dec_tokens.shape
-    x = F.embedding(dec_tokens.long(), params["embed"]) + \
+    x = embed_lookup(dec_tokens, params["embed"]) + \
         params["dec_pos"][:Tdec][None]
     ks, vs, cks, cvs = [], [], [], []
     for l in range(cfg.n_layers):
-        args = (cfg, layer_params(params["dec_layers"], l), x, enc_out)
+        args = (cfg, layer_params(params["dec_layers"], l), x, enc_out, pctx)
         if remat:
             x, (k, v, ck, cv) = checkpoint(_dec_body, *args,
                                            use_reentrant=False)
@@ -207,16 +214,17 @@ def whisper_forward(cfg: ModelConfig, params, dec_tokens, frames, *,
     return logits
 
 
-def whisper_prefill(cfg: ModelConfig, params, dec_tokens, frames):
+def whisper_prefill(cfg: ModelConfig, params, dec_tokens, frames, *,
+                    pctx: Optional[ParallelCtx] = None):
     """-> (last-position logits (B, V), cache with self K/V of length
     T_dec)."""
     logits, cache = whisper_forward(cfg, params, dec_tokens, frames,
-                                    return_cache=True)
+                                    pctx=pctx, return_cache=True)
     return logits[:, -1], cache
 
 
 def whisper_decode(cfg: ModelConfig, params, cache: EncDecCache, tokens,
-                   positions):
+                   positions, *, pctx: Optional[ParallelCtx] = None):
     """tokens (B,), positions (B,) -> (logits (B, V) float32, cache). The
     learned position is clipped to ``max_target_len - 1``, as in JAX; the
     cross K/V are static."""
@@ -224,9 +232,9 @@ def whisper_decode(cfg: ModelConfig, params, cache: EncDecCache, tokens,
     Smax = cache.self_k.shape[2]
     pos_emb = params["dec_pos"][positions.long().clamp(
         0, cfg.max_target_len - 1)]
-    x = (F.embedding(tokens.long(), params["embed"]) + pos_emb)[:, None]
-    kv_pos = torch.arange(Smax, dtype=positions.dtype,
-                          device=x.device).expand(B, Smax)
+    x = (embed_lookup(tokens, params["embed"]) + pos_emb)[:, None]
+    kv_pos = replicated_like(x, torch.arange(
+        Smax, dtype=positions.dtype, device=x.device).expand(B, Smax))
     kv_valid = kv_pos <= positions[:, None]
     for l in range(cfg.n_layers):
         x, _ = _dec_layer(cfg, layer_params(params["dec_layers"], l), x,
@@ -234,6 +242,6 @@ def whisper_decode(cfg: ModelConfig, params, cache: EncDecCache, tokens,
                           (cache.self_k[l], cache.self_v[l]),
                           (cache.cross_k[l], cache.cross_v[l]),
                           pos_write=positions, kv_pos=kv_pos,
-                          kv_valid=kv_valid)
+                          kv_valid=kv_valid, pctx=pctx)
     x = apply_norm(cfg, params["ln_dec_final"], x[:, 0])
     return matmul_f32(x, params["embed"].T), cache

@@ -17,23 +17,25 @@ stacked Mamba weights. ``zamba_decode`` writes the new token's K/V into
 the cache **in place** (JAX returns a fresh cache; a position past the
 cache's end, which JAX's ``.at[].set`` drops, raises here or trips a
 device assert, so callers pad the cache) and returns fresh Mamba states.
-Not ported: the sharding argument ``pctx`` and ``zamba_forward``'s
-``cache`` (no caller passes one).
+Every function takes the parallel context ``pctx``: under its mesh the
+flash kernel and the SSD scan run on each rank's shard and the K/V writes
+go through ``layers.write_kv``. Not ported: ``zamba_forward``'s ``cache``
+(no caller passes one).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mamba2
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (apply_norm, attention, attn_out,
-                                       attn_qkv, dense_prefill_attention,
-                                       mlp, rms_norm)
+from repro_torch.models.layers import (
+    ParallelCtx, apply_norm, attention, attn_out, attn_qkv, constrain,
+    dense_prefill_attention, dp_for, embed_lookup, matmul, mlp,
+    replicated_like, rms_norm, write_kv)
 from repro_torch.models.mamba2 import MambaState
 from repro_torch.models.transformer import (TensorSpec, _attn_params,
                                             _mlp_params, _norm_params,
@@ -104,21 +106,19 @@ def init_zamba(cfg: ModelConfig, generator: torch.Generator,
 
 def _shared_block_full(cfg: ModelConfig, sp, x, x0, positions, *,
                        kv_pos=None, kv_valid=None, k_cache=None,
-                       v_cache=None, pos_write=None):
+                       v_cache=None, pos_write=None, pctx=None):
     """The shared attention + MLP block; returns (h, k, v). Without a cache
     the rows are the sequence 0..S-1 and attend causally through the flash
     kernel; with one (decode, S == 1) the new K/V is written into it at
     ``pos_write`` and the row attends over it by position."""
-    h = torch.cat([x, x0], dim=-1) @ sp["in_proj"]
+    h = matmul(torch.cat([x, x0], dim=-1), sp["in_proj"])
     a_in = apply_norm(cfg, sp["ln_attn"], h)
     q, k, v = attn_qkv(cfg, sp["attn"], a_in, positions)
     if k_cache is None:
-        o = dense_prefill_attention(q, k, v)
+        o = dense_prefill_attention(q, k, v, pctx=pctx)
     else:
-        slot = (torch.arange(x.shape[0], device=x.device), pos_write.long())
-        k_cache.index_put_(slot, k[:, 0])
-        v_cache.index_put_(slot, v[:, 0])
-        k, v = k_cache, v_cache
+        k = write_kv(k_cache, pos_write[:, None], k)
+        v = write_kv(v_cache, pos_write[:, None], v)
         o = attention(q, k, v, positions, kv_pos, kv_valid=kv_valid,
                       causal=True)
     h = h + attn_out(sp["attn"], o)
@@ -127,13 +127,24 @@ def _shared_block_full(cfg: ModelConfig, sp, x, x0, positions, *,
     return h, k, v
 
 
-def _mamba_layer(cfg: ModelConfig, lp, x, conv, ssm):
+def _mamba_layer(cfg: ModelConfig, lp, x, conv, ssm, pctx=None):
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
-    out, new = mamba2.mamba_block_full(cfg, lp, h, conv, ssm)
+    out, new = mamba2.mamba_block_full(cfg, lp, h, conv, ssm, pctx)
     return x + out, new
 
 
+def _zero_state(cfg: ModelConfig, B: int, x, pctx) -> MambaState:
+    """One layer's zero Mamba state; under a mesh, DTensors with the
+    placements of ``sharding.cache_specs``."""
+    if pctx is None or pctx.mesh is None:
+        return mamba2.state_zeros(cfg, 1, B, x.dtype, x.device)
+    from repro_torch.distributed import sharding as sh
+    return sh.zeros(mamba2.state_specs(cfg, 1, B, x.dtype), pctx.mesh,
+                    sh.cache_specs(cfg, pctx.mesh, B).mamba)
+
+
 def zamba_forward(cfg: ModelConfig, params, tokens, *,
+                  pctx: Optional[ParallelCtx] = None,
                   return_cache: bool = False, remat: bool = False):
     """tokens (B, T) -> logits (B, T, V) float32; optionally the
     ``ZambaCache`` of length T. T must be at most the SSD chunk or a
@@ -141,17 +152,18 @@ def zamba_forward(cfg: ModelConfig, params, tokens, *,
     (``torch.utils.checkpoint``, non-reentrant), as JAX checkpoints its
     layer body."""
     B, T = tokens.shape
-    x = F.embedding(tokens.long(), params["embed"])   # see tf._embed
+    x = embed_lookup(tokens, params["embed"])   # see tf._embed
+    x = constrain(x, pctx, dp_for(pctx, x.shape[0]), None, None)
     x0 = x
-    positions = torch.arange(T, dtype=torch.int32,
-                             device=x.device).expand(B, T)
-    zero = mamba2.state_zeros(cfg, 1, B, x.dtype, x.device)
+    positions = replicated_like(x, torch.arange(
+        T, dtype=torch.int32, device=x.device).expand(B, T))
+    zero = _zero_state(cfg, B, x, pctx)
     spos = shared_positions(cfg)
     convs, ssms, ks, vs = [], [], [], []
     for app_i, (lo, hi) in enumerate(_segments(cfg, spos)):
         for l in range(lo, hi):
             args = (cfg, layer_params(params["mamba_layers"], l), x,
-                    zero.conv[0], zero.ssm[0])
+                    zero.conv[0], zero.ssm[0], pctx)
             if remat:
                 x, (nc, ns) = checkpoint(_mamba_layer, *args,
                                          use_reentrant=False)
@@ -162,7 +174,7 @@ def zamba_forward(cfg: ModelConfig, params, tokens, *,
                 ssms.append(ns)
         if app_i < len(spos):
             delta, k, v = _shared_block_full(cfg, params["shared"], x, x0,
-                                             positions)
+                                             positions, pctx=pctx)
             x = x + delta
             if return_cache:
                 ks.append(k)
@@ -176,23 +188,25 @@ def zamba_forward(cfg: ModelConfig, params, tokens, *,
     return logits
 
 
-def zamba_prefill(cfg: ModelConfig, params, tokens):
+def zamba_prefill(cfg: ModelConfig, params, tokens, *,
+                  pctx: Optional[ParallelCtx] = None):
     """tokens (B, T) -> (last-position logits (B, V), cache of length
     T)."""
-    logits, cache = zamba_forward(cfg, params, tokens, return_cache=True)
+    logits, cache = zamba_forward(cfg, params, tokens, pctx=pctx,
+                                  return_cache=True)
     return logits[:, -1], cache
 
 
 def zamba_decode(cfg: ModelConfig, params, cache: ZambaCache, tokens,
-                 positions):
+                 positions, *, pctx: Optional[ParallelCtx] = None):
     """tokens (B,), positions (B,) -> (logits (B, V) float32, cache): the
     K/V written into ``cache`` in place, the Mamba states fresh."""
     B = tokens.shape[0]
     Smax = cache.k.shape[2]
-    x = F.embedding(tokens.long(), params["embed"])  # (B, D)
+    x = embed_lookup(tokens, params["embed"])  # (B, D)
     x0 = x
-    kv_pos = torch.arange(Smax, dtype=positions.dtype,
-                          device=x.device).expand(B, Smax)
+    kv_pos = replicated_like(x, torch.arange(
+        Smax, dtype=positions.dtype, device=x.device).expand(B, Smax))
     kv_valid = kv_pos <= positions[:, None]
     spos = shared_positions(cfg)
     convs, ssms = [], []
@@ -201,7 +215,7 @@ def zamba_decode(cfg: ModelConfig, params, cache: ZambaCache, tokens,
             lp = layer_params(params["mamba_layers"], l)
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
             out, (nc, ns) = mamba2.mamba_block_step(
-                cfg, lp, h, cache.mamba.conv[l], cache.mamba.ssm[l])
+                cfg, lp, h, cache.mamba.conv[l], cache.mamba.ssm[l], pctx)
             x = x + out
             convs.append(nc)
             ssms.append(ns)
@@ -210,7 +224,7 @@ def zamba_decode(cfg: ModelConfig, params, cache: ZambaCache, tokens,
                 cfg, params["shared"], x[:, None], x0[:, None],
                 positions[:, None], kv_pos=kv_pos, kv_valid=kv_valid,
                 k_cache=cache.k[app_i], v_cache=cache.v[app_i],
-                pos_write=positions)
+                pos_write=positions, pctx=pctx)
             x = x + delta[:, 0]
     x = rms_norm(x, params["ln_final"], cfg.norm_eps)
     logits = _unembed(cfg, params, x)

@@ -32,7 +32,7 @@ COPIED = sorted(
     and p.name not in ("layers.py", "transformer.py", "rwkv6.py",
                        "mamba2.py", "zamba2.py", "whisper.py",
                        "model_zoo.py", "optimizer.py", "steps.py",
-                       "checkpoint.py"))   # ported, not copied
+                       "checkpoint.py", "sharding.py"))   # ported, not copied
 
 
 def test_copies_cover_the_engine_closure():
@@ -125,6 +125,11 @@ import repro_torch.train.optimizer
 import repro_torch.obs
 import repro_torch.engine.faults
 import repro_torch.distributed.router
+import repro_torch.distributed.sharding
+import repro_torch.launch.mesh
+import repro_torch.launch.dryrun
+import repro_torch.launch.roofline
+import repro_torch.launch.roofline_probe
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -18,7 +18,9 @@
   gradient ≈ 200x over the 4 layers, and XLA's and ATen's summation
   orders already part the logits by ≈ 7e-5 of their magnitude; the port's
   chunked or sequential WKV changes it by < 2e-5).
-- ``lm_forward`` raises for given ``positions`` (not ported).
+- ``lm_forward`` with given ``positions`` (rows shifted by 5, through the
+  plain ``layers.attention``) against JAX's on gemma2-27b ``.reduced()``
+  (1e-4), and against the kernel path at 0..S-1 (RoPE is relative).
 - ``remat=True`` equal to ``remat=False``, exactly.
 - Each autograd Function (the two kernels' and ``_ProductF32``) against
   autograd of its plain version; the kernel launches' grad guard.
@@ -235,12 +237,23 @@ def test_train_loss_and_grads_match_jax(arch):
 
 
 def test_lm_forward_positions_are_not_ported():
-    """Given positions raise: rows run at 0..S-1 through the kernel."""
-    cfg, _, _, tparams = _load("gemma2-27b")
-    toks = torch.ones((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="positions"):
-        ttf.lm_forward(cfg, tparams, toks,
-                       positions=torch.arange(8, dtype=torch.int32)[None])
+    """Given positions (every row shifted by 5) run through the plain
+    ``layers.attention``: JAX's ``lm_forward`` with the same positions
+    within 1e-4, and the kernel path at 0..S-1 within 1e-4 (RoPE depends
+    on the offset between positions only)."""
+    cfg, jcfg, jparams, tparams = _load("gemma2-27b")
+    toks = np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 16),
+                                             dtype=np.int32)
+    pos = np.broadcast_to(np.arange(5, 21, dtype=np.int32), (2, 16))
+    got = ttf.lm_forward(cfg, tparams, torch.from_numpy(toks),
+                         positions=torch.from_numpy(pos.copy()))
+    want = jtf.lm_forward(jcfg, jparams, jnp.asarray(toks),
+                          positions=jnp.asarray(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    base = ttf.lm_forward(cfg, tparams, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), base.numpy(), atol=1e-4,
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("arch,chunked_ce", [("gemma2-27b", False),

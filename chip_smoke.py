@@ -193,7 +193,17 @@ granite-moe-3b-a800m) adds, in run order:
   launches are logged apart, the kernels JSON keeps the llama serve's;
 - profile-moe: one full-width mixed iteration (a pack of C 256 plus 8
   lanes): wall vs device time, idle share, device time by MoE step and
-  by paged kernel. Freed before serve-dense.
+  by paged kernel. Its pool is freed, its weights go on to serve-bench.
+- serve-bench (after profile-moe): both cells of
+  benchmarks_torch/serving_bench.py, qwen3coder-ilr1-kvpressure-1chip
+  (on serve-moe's weights) and llama1b-ilr1-families-1chip, cut to 4
+  sessions of 2 rounds (BENCH_CUT), through the bench's own ``run``:
+  the generator's ILR-1 sessions on TorchBackend (paged, 4,096 / 8,192
+  pages) with real sleep tools, every end-to-end metric printed;
+  ``correct`` must hold (decode counts, engine invariants, the
+  teacher-forced re-score of the served tokens through the
+  flash_attention path) and both paged kernels must launch; its launches
+  are logged apart. Freed before serve-dense.
 
 The zamba2 (Mamba2 + shared attention) and whisper (encoder-decoder)
 families add, in run order:
@@ -249,6 +259,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from benchmarks_torch import serving_bench  # noqa: E402
 from repro_torch.configs import qwen3_coder_30b  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import events as ev  # noqa: E402
@@ -2879,6 +2890,43 @@ def phase_serve_moe():
     return launches, backend
 
 
+BENCH_CUT = dict(n_sessions=4, rounds_lo=2, rounds_hi=2, arrival_rate=0.5)
+
+
+def phase_serve_bench(qwen_params) -> dict:
+    """The serving bench's two cells cut to BENCH_CUT, through its own
+    ``run`` and ``report``: ``correct`` must hold and both paged kernels
+    must have launched in each run (the bench zeroes the counters just
+    before its sessions arrive and reads them just after). The qwen cell
+    runs on ``qwen_params`` (serve-moe's weights), the llama cell on
+    weights the bench builds from seed 0. Returns each cell's launches."""
+    out = {}
+    for name in ("qwen3coder-ilr1-kvpressure-1chip",
+                 "llama1b-ilr1-families-1chip"):
+        cell = serving_bench.cut(serving_bench.CELLS[name], **BENCH_CUT)
+        t0 = time.monotonic()
+        res = serving_bench.run(
+            cell, device=DEV, say=log,
+            params=qwen_params if cell.arch == "qwen3-coder-30b-a3b"
+            else None)
+        serving_bench.report(res, say=log)
+        log(f"[serve-bench] {name}: run in {time.monotonic() - t0:.2f}s")
+        if not res["correct"]:
+            raise AssertionError(f"serve-bench {name}: not correct: "
+                                 f"{json.dumps(res['checks'])}")
+        if res["e2e"]["failed_frac"]["value"]:
+            raise AssertionError(f"serve-bench {name}: sessions failed")
+        for k in MAIN_PATH:
+            if res["launches"][k] <= 0:
+                raise AssertionError(f"serve-bench {name}: {k} never "
+                                     "launched")
+        out[name] = res["launches"]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 DENSE_SERVE = dict(prompts=(4608, 4608, 1024, 1024), decode=16, slots=4,
                    max_len=6144)
 
@@ -4509,11 +4557,21 @@ def main() -> int:
     finally:
         backend.close()
     log(f"[profile-moe] done in {time.monotonic() - t0:.2f}s")
-    del backend                      # 61 GB of weights: free the card for
-    gc.collect()                     # gemma2-27b's ~64 GB
+    qwen_params = backend.params     # the bench's qwen cell reuses them;
+    del backend                      # the pool goes first
+    gc.collect()
     torch.cuda.empty_cache()
     log(f"[serve-moe] launches (logged apart; the kernels JSON keeps the "
-        f"llama serve's): {moe_launches}; device memory after freeing "
+        f"llama serve's): {moe_launches}")
+    t0 = time.monotonic()
+    bench_launches = phase_serve_bench(qwen_params)
+    log(f"[serve-bench] launches (logged apart; the kernels JSON keeps the "
+        f"llama serve's): {json.dumps(bench_launches)}")
+    log(f"[serve-bench] done in {time.monotonic() - t0:.2f}s")
+    del qwen_params                  # 61 GB of weights: free the card for
+    gc.collect()                     # gemma2-27b's ~64 GB
+    torch.cuda.empty_cache()
+    log(f"[serve-bench] device memory after freeing "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     t0 = time.monotonic()
     dense_launches, backend = phase_serve_dense()

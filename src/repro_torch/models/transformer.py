@@ -308,7 +308,7 @@ def lm_prefill(cfg: ModelConfig, params, tokens, *,
 def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
             positions=None, *, q_offset: Optional[int] = None,
             n_real: Optional[int] = None,
-            pctx: Optional[ParallelCtx] = None):
+            pctx: Optional[ParallelCtx] = None, return_hidden: bool = False):
     """An incremental step against the dense cache, written in place.
     tokens: (B, C) int32. Every layer writes its new KV at the step's
     positions (also its RoPE positions) and then attends over the cache
@@ -324,7 +324,10 @@ def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
     ``q_offset, q_offset + 1, ...``; the rest are padded lanes parked at
     the scratch position ``Smax - 1``, their outputs garbage. The host
     start is the only source of the chunk's positions: it drives RoPE, the
-    KV writes and the flash attention's mask. Anything else raises."""
+    KV writes and the flash attention's mask. Anything else raises.
+
+    ``return_hidden`` returns the final-norm hidden states (B, C, D) in
+    place of the logits."""
     B, C = tokens.shape
     Smax = cache.k.shape[2]
     if q_offset is None:
@@ -371,6 +374,8 @@ def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
                                         q_offset=q_offset, pctx=pctx)
         x = _ffn_residual(cfg, lp, x, o, pctx)
     x = apply_norm(cfg, params["ln_final"], x)
+    if return_hidden:
+        return x, cache
     return _unembed(cfg, params, x), cache
 
 
@@ -536,7 +541,8 @@ def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
 
 def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
                      positions, table, write_pages, write_offsets, kv_len,
-                     *, pctx: Optional[ParallelCtx] = None):
+                     *, pctx: Optional[ParallelCtx] = None,
+                     return_hidden: bool = False):
     """Chunked prefill of ONE sequence against the page pool, gather-free.
 
     tokens/positions: (1, C) absolute positions; padded lanes sit at
@@ -549,7 +555,9 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
 
     Per layer the chunk's KV is scattered into its leased pages first (in
     place), then ``paged_prefill_attention`` reads every page in place
-    through the table. Returns (logits (1, C, V) float32, cache).
+    through the table. Returns (logits (1, C, V) float32, cache), or with
+    ``return_hidden`` the final-norm hidden states (1, C, D) in place of
+    the logits.
     """
     if not supports_paged(cfg):
         raise ValueError("paged prefill: unsupported attention variant")
@@ -570,6 +578,8 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
                                     pctx)
         x = _ffn_residual(cfg, lp, x, o, pctx)
     x = apply_norm(cfg, params["ln_final"], x)
+    if return_hidden:
+        return x, cache
     return _unembed(cfg, params, x), cache
 
 
@@ -601,13 +611,17 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     dev = cache.k.device
     nxt = []
     for j in range(p_tokens.shape[0]):
-        logits, cache = lm_prefill_paged(
+        hidden, cache = lm_prefill_paged(
             cfg, params, cache, p_tokens[j], p_positions[j], p_tables[j],
-            p_write_pages[j], p_write_offsets[j], p_kv_lens[j], pctx=pctx)
-        # a one-element index tensor, not a 0-d one: indexing with a 0-d
-        # CUDA tensor reads it back to the host (a sync per pack)
+            p_write_pages[j], p_write_offsets[j], p_kv_lens[j], pctx=pctx,
+            return_hidden=True)
+        # logits at the pack's last token only (a whole chunk's would be
+        # C x V floats). A one-element index tensor, not a 0-d one:
+        # indexing with a 0-d CUDA tensor reads it back to the host (a
+        # sync per pack)
         last = p_last_idx[j:j + 1].long()
-        nxt.append(torch.argmax(logits[0, last], dim=-1)[0])
+        logits = _unembed(cfg, params, hidden[0, last])
+        nxt.append(torch.argmax(logits, dim=-1)[0])
     p_next = (torch.stack(nxt).to(torch.int32) if nxt
               else torch.zeros((0,), dtype=torch.int32, device=dev))
     if d_tokens.shape[0] > 0:

@@ -57,6 +57,7 @@ from repro_torch.models.transformer import (KVCache, PagedKVCache, init_lm,
                                             lm_decode, lm_decode_paged,
                                             lm_mixed_paged, lm_prefill_paged,
                                             lm_step, supports_paged)
+from repro_torch.obs import spans
 
 
 def _bucket(n: int, lo: int = 32) -> int:
@@ -193,48 +194,63 @@ class TorchBackend:
         if work.empty:
             return 0.0
         st = self.dispatch_stats
-        t0 = time.monotonic()
+        # one set of boundaries (spans.clock, monotonic) times the phases'
+        # spans and dispatch_stats alike
+        t0 = spans.clock()
         impl = self._impl
-        # device-write ordering within a tick: D2H snapshots of swapped-out
-        # pages first (their ids may be re-leased to this very batch), then
-        # CoW page copies (their sources may be about to be overwritten),
-        # then H2D restores, then compute writes
-        for s, _toks in work.swapouts:
-            fut = impl.swap_out(s)
-            if fut is not None:
-                work.swap_futures[s.sid] = fut
-        t1 = time.monotonic()
-        impl.apply_cow(work.cow_copies)
-        t2 = time.monotonic()
-        for s, _toks in work.swapins:
-            impl.swap_in(s, work.leases.get(s.sid, ()))
-        t3 = time.monotonic()
-        if work.mixed and (work.prefills or work.decodes) and \
-                isinstance(impl, _PagedLayout):
-            # iteration-level tick on the paged layout: prefill packs +
-            # decode lanes in one lm_mixed_paged call (attributed to
-            # mixed_s); the dense layout takes the round path below
-            impl.run_mixed(work)
-            t4 = t5 = time.monotonic()
-            st["mixed_s"] += t4 - t3
-            st["mixed_calls"] += 1
-        else:
-            for s, chunk in work.prefills:
-                impl.prefill(s, chunk, work.leases.get(s.sid, ()))
-            t4 = time.monotonic()
-            if work.decodes:
-                impl.decodes(work.decodes, work.leases)
-            t5 = time.monotonic()
-            st["prefill_s"] += t4 - t3
-            st["decode_s"] += t5 - t4
+        with spans.root("run_batch", t0) as top:
+            # device-write ordering within a tick: D2H snapshots of
+            # swapped-out pages first (their ids may be re-leased to this
+            # very batch), then CoW page copies (their sources may be about
+            # to be overwritten), then H2D restores, then compute writes
+            ph = spans.begin("swap_out", t0)
+            for s, _toks in work.swapouts:
+                fut = impl.swap_out(s)
+                if fut is not None:
+                    work.swap_futures[s.sid] = fut
+            t1 = spans.clock()
+            ph.end(t1)
+            ph = spans.begin("cow", t1)
+            impl.apply_cow(work.cow_copies)
+            t2 = spans.clock()
+            ph.end(t2)
+            ph = spans.begin("swap_in", t2)
+            for s, _toks in work.swapins:
+                impl.swap_in(s, work.leases.get(s.sid, ()))
+            t3 = spans.clock()
+            ph.end(t3)
+            if work.mixed and (work.prefills or work.decodes) and \
+                    isinstance(impl, _PagedLayout):
+                # iteration-level tick on the paged layout: prefill packs +
+                # decode lanes in one lm_mixed_paged call (attributed to
+                # mixed_s; its span is run_mixed's own); the dense layout
+                # takes the round path below
+                impl.run_mixed(work)
+                t4 = t5 = spans.clock()
+                st["mixed_s"] += (t4 - t3) * 1e-9
+                st["mixed_calls"] += 1
+            else:
+                ph = spans.begin("prefill", t3)
+                for s, chunk in work.prefills:
+                    impl.prefill(s, chunk, work.leases.get(s.sid, ()))
+                t4 = spans.clock()
+                ph.end(t4)
+                ph = spans.begin("decode", t4)
+                if work.decodes:
+                    impl.decodes(work.decodes, work.leases)
+                t5 = spans.clock()
+                ph.end(t5)
+                st["prefill_s"] += (t4 - t3) * 1e-9
+                st["decode_s"] += (t5 - t4) * 1e-9
+            top.end(t5)
         st["batches"] += 1
-        st["swap_out_s"] += t1 - t0
-        st["cow_s"] += t2 - t1
-        st["swap_in_s"] += t3 - t2
-        st["wall_s"] += t5 - t0
+        st["swap_out_s"] += (t1 - t0) * 1e-9
+        st["cow_s"] += (t2 - t1) * 1e-9
+        st["swap_in_s"] += (t3 - t2) * 1e-9
+        st["wall_s"] += (t5 - t0) * 1e-9
         st["prefill_calls"] += len(work.prefills)
         st["decode_calls"] += len(work.decodes)
-        return t5 - t0
+        return (t5 - t0) * 1e-9
 
     def swap_stream_stats(self) -> Optional[Dict]:
         """Background stream counters (None without a stream, as for the
@@ -273,10 +289,13 @@ class TorchBackend:
                     rng = np.random.default_rng(
                         zlib.crc32(repr(key).encode()))
                     ids.extend(int(x) for x in rng.integers(2, V, size=n))
+                spans.count("context_tokens_synthesized", len(ids))
+        n0 = len(ids)
         while len(ids) < target:
             pos = len(ids)
             ids.append(int(np.random.default_rng((s.sid, pos))
                            .integers(2, V)))
+        spans.count("context_tokens_synthesized", len(ids) - n0)
         return ids
 
 
@@ -727,12 +746,48 @@ class _PagedLayout:
         prefill chunk becomes a pack and every decode lane advances one
         token. Pack shape (C, Np), lane count B and pack count P are
         bucketed to powers of two; slack packs/lanes park on the scratch
-        page (the construction ``calibrate`` warms)."""
+        page (the construction ``calibrate`` warms). Spans (``obs.spans``):
+        ``run_mixed.inputs``, ``.forward`` (the enqueue alone),
+        ``.readback`` and ``.commit``, in that order."""
+        with spans.span("run_mixed"):
+            with spans.span("run_mixed.inputs"):
+                packs, decodes, C, Np, args = self._mixed_inputs(work)
+            P, B = len(args[0]), len(args[7])       # p_toks, d_toks
+            spans.count("pack_tokens_real",
+                        sum(len(seg) for _, seg, _, _ in packs))
+            spans.count("pack_tokens_computed", P * C)
+            spans.count("lanes_real", len(decodes))
+            spans.count("lanes_computed", B)
+            with spans.span("run_mixed.forward"):
+                p_next, d_next, self.cache = lm_mixed_paged(
+                    self.b.cfg, self.b.params, self.cache, *args)
+            with spans.span("run_mixed.readback"):
+                if packs:
+                    p_next = p_next.cpu().numpy()
+                if decodes:
+                    d_next = d_next.cpu().numpy()
+                spans.count("readbacks", bool(packs) + bool(decodes))
+            with spans.span("run_mixed.commit"):
+                for j, (s, _seg, _start, _lease) in enumerate(packs):
+                    s.meta["next_token"] = int(p_next[j])
+                for i, (s, _lease) in enumerate(decodes):
+                    tok = int(d_next[i])
+                    s.meta.setdefault("generated", []).append(tok)
+                    s.meta["next_token"] = tok
+                    s.meta.setdefault("context_ids", []).append(tok)
+                for _ in packs:
+                    self._account_prefill(Np, C)
+
+    def _mixed_inputs(self, work: BatchWork):
+        """``run_mixed``'s packs ``(s, seg, start, lease)``, lanes
+        ``(s, lease)``, C, Np and the 13 ``lm_mixed_paged`` arrays on the
+        device."""
         b, page = self.b, self.page
         leases = work.leases
         packs = []
         for s, chunk in work.prefills:
-            ids = b._context_ids(s)
+            with spans.span("context_ids"):
+                ids = b._context_ids(s)
             start = s.resident_len
             packs.append((s, ids[start:start + chunk], start,
                           leases.get(s.sid, ())))
@@ -786,24 +841,10 @@ class _PagedLayout:
             d_wpid[i] = self.binding.page_of(lease[p // page])
             d_woff[i] = p % page
 
-        t = self._t
-        p_next, d_next, self.cache = lm_mixed_paged(
-            b.cfg, b.params, self.cache, t(p_toks), t(p_pos), t(p_tables),
-            t(p_wpid), t(p_woff), t(p_kvlen), t(p_last), t(d_toks),
-            t(d_pos), t(d_tables), t(d_lens), t(d_wpid), t(d_woff))
-        if packs:
-            p_next = p_next.cpu().numpy()
-            for j, (s, _seg, _start, _lease) in enumerate(packs):
-                s.meta["next_token"] = int(p_next[j])
-        if decodes:
-            d_next = d_next.cpu().numpy()
-            for i, (s, _lease) in enumerate(decodes):
-                tok = int(d_next[i])
-                s.meta.setdefault("generated", []).append(tok)
-                s.meta["next_token"] = tok
-                s.meta.setdefault("context_ids", []).append(tok)
-        for _ in packs:
-            self._account_prefill(Np, C)
+        args = [self._t(a) for a in (
+            p_toks, p_pos, p_tables, p_wpid, p_woff, p_kvlen, p_last,
+            d_toks, d_pos, d_tables, d_lens, d_wpid, d_woff)]
+        return packs, decodes, C, Np, args
 
 
 class _DenseLayout:

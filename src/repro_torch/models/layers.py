@@ -30,6 +30,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import spans
 
 Params = Dict[str, Any]
 F32 = torch.float32
@@ -913,13 +914,17 @@ def moe_ffn(cfg: ModelConfig, p: Params, x,
         return _moe_ffn_sharded(cfg, p, x, pctx, token_shard)
     m = cfg.moe
     B, S, D = x.shape
-    xt = x.reshape(B * S, D)
-    logits = matmul_f32(xt, p["router"])
-    idx, w = _route(m, logits)
-    capacity = _capacity(m, B * S)
-    buf, meta = _dispatch(xt, idx, w, m.num_experts, capacity)
-    out = _expert_ffn(cfg, p, buf)
-    return _combine(out, meta, w, B * S).reshape(B, S, D)
+    with spans.span("moe.route"):
+        xt = x.reshape(B * S, D)
+        logits = matmul_f32(xt, p["router"])
+        idx, w = _route(m, logits)
+        capacity = _capacity(m, B * S)
+    with spans.span("moe.dispatch"):
+        buf, meta = _dispatch(xt, idx, w, m.num_experts, capacity)
+    with spans.span("moe.experts"):
+        out = _expert_ffn(cfg, p, buf)
+    with spans.span("moe.combine"):
+        return _combine(out, meta, w, B * S).reshape(B, S, D)
 
 
 _MOE_WEIGHTS = ("router", "w_gate", "w_up", "w_down")

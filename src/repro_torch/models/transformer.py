@@ -34,6 +34,7 @@ from repro_torch.models.layers import (
     dense_prefill_attention, dp_for, embed_lookup, matmul_f32, mlp, moe_ffn,
     moe_ffn_ep, paged_decode_attention, paged_prefill_attention, paged_write,
     replicated_like, write_kv)
+from repro_torch.obs import spans
 
 class TensorSpec(NamedTuple):
     """Shape and dtype of a tensor not yet allocated (the port's
@@ -527,14 +528,16 @@ def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     q_pos = positions[:, None]
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
-        h = apply_norm(cfg, lp["ln_attn"], x)
-        q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
-        o, _, _ = paged_decode_attention(
-            q[:, 0].contiguous(), cache.k[l], cache.v[l], block_tables,
-            lengths, k_new=k_new[:, 0].contiguous(),
-            v_new=v_new[:, 0].contiguous(), write_pages=write_pages,
-            write_offsets=write_offsets, pctx=pctx)
-        x = _ffn_residual(cfg, lp, x, o[:, None], pctx)
+        with spans.span("layer.attn"):
+            h = apply_norm(cfg, lp["ln_attn"], x)
+            q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
+            o, _, _ = paged_decode_attention(
+                q[:, 0].contiguous(), cache.k[l], cache.v[l], block_tables,
+                lengths, k_new=k_new[:, 0].contiguous(),
+                v_new=v_new[:, 0].contiguous(), write_pages=write_pages,
+                write_offsets=write_offsets, pctx=pctx)
+        with spans.span("layer.ffn"):
+            x = _ffn_residual(cfg, lp, x, o[:, None], pctx)
     x = apply_norm(cfg, params["ln_final"], x)
     return _unembed(cfg, params, x[:, 0]), cache
 
@@ -570,13 +573,17 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     table_b = table.to(torch.int32).reshape(1, -1).contiguous()
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
-        h = apply_norm(cfg, lp["ln_attn"], x)
-        q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
-        k_l = paged_write(cache.k[l], write_pages, write_offsets, k_new[0])
-        v_l = paged_write(cache.v[l], write_pages, write_offsets, v_new[0])
-        o = paged_prefill_attention(q, k_l, v_l, table_b, kv_len_b, q_offset,
-                                    pctx)
-        x = _ffn_residual(cfg, lp, x, o, pctx)
+        with spans.span("layer.attn"):
+            h = apply_norm(cfg, lp["ln_attn"], x)
+            q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
+            k_l = paged_write(cache.k[l], write_pages, write_offsets,
+                              k_new[0])
+            v_l = paged_write(cache.v[l], write_pages, write_offsets,
+                              v_new[0])
+            o = paged_prefill_attention(q, k_l, v_l, table_b, kv_len_b,
+                                        q_offset, pctx)
+        with spans.span("layer.ffn"):
+            x = _ffn_residual(cfg, lp, x, o, pctx)
     x = apply_norm(cfg, params["ln_final"], x)
     if return_hidden:
         return x, cache
@@ -611,25 +618,27 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     dev = cache.k.device
     nxt = []
     for j in range(p_tokens.shape[0]):
-        hidden, cache = lm_prefill_paged(
-            cfg, params, cache, p_tokens[j], p_positions[j], p_tables[j],
-            p_write_pages[j], p_write_offsets[j], p_kv_lens[j], pctx=pctx,
-            return_hidden=True)
-        # logits at the pack's last token only (a whole chunk's would be
-        # C x V floats). A one-element index tensor, not a 0-d one:
-        # indexing with a 0-d CUDA tensor reads it back to the host (a
-        # sync per pack)
-        last = p_last_idx[j:j + 1].long()
-        logits = _unembed(cfg, params, hidden[0, last])
-        nxt.append(torch.argmax(logits, dim=-1)[0])
+        with spans.span("step.pack"):
+            hidden, cache = lm_prefill_paged(
+                cfg, params, cache, p_tokens[j], p_positions[j],
+                p_tables[j], p_write_pages[j], p_write_offsets[j],
+                p_kv_lens[j], pctx=pctx, return_hidden=True)
+            # logits at the pack's last token only (a whole chunk's would
+            # be C x V floats). A one-element index tensor, not a 0-d one:
+            # indexing with a 0-d CUDA tensor reads it back to the host (a
+            # sync per pack)
+            last = p_last_idx[j:j + 1].long()
+            logits = _unembed(cfg, params, hidden[0, last])
+            nxt.append(torch.argmax(logits, dim=-1)[0])
     p_next = (torch.stack(nxt).to(torch.int32) if nxt
               else torch.zeros((0,), dtype=torch.int32, device=dev))
     if d_tokens.shape[0] > 0:
-        logits, cache = lm_decode_paged(cfg, params, cache, d_tokens,
-                                        d_positions, d_tables, d_lengths,
-                                        d_write_pages, d_write_offsets,
-                                        pctx=pctx)
-        d_next = torch.argmax(logits, dim=-1).to(torch.int32)
+        with spans.span("step.decode"):
+            logits, cache = lm_decode_paged(cfg, params, cache, d_tokens,
+                                            d_positions, d_tables,
+                                            d_lengths, d_write_pages,
+                                            d_write_offsets, pctx=pctx)
+            d_next = torch.argmax(logits, dim=-1).to(torch.int32)
     else:
         d_next = torch.zeros((0,), dtype=torch.int32, device=dev)
     return p_next, d_next, cache

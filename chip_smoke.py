@@ -1867,6 +1867,7 @@ def phase_serve():
          for k, v in st.items()}))
     log(f"[serve] swap_stream {json.dumps(backend.swap_stream_stats())}")
     log(f"[serve] kernel launches on the main path: {launches}")
+    _graph_stages("serve", backend, replayed=True)
     for name in MAIN_PATH:
         if launches[name] <= 0:
             raise AssertionError(f"serve: {name} never launched")
@@ -1901,6 +1902,17 @@ def _require_paged(label: str, launches: dict) -> None:
     for name in MAIN_PATH:
         if launches[name] <= 0:
             raise AssertionError(f"{label}: {name} never launched")
+
+
+def _graph_stages(label: str, backend, replayed: bool = False) -> None:
+    """Log the mixed iteration's stages by what ran them (a bucket's
+    first sighting eager, its capture, replays of its CUDA graph);
+    ``replayed``: some stage must have replayed."""
+    graphs = backend._impl.graphs
+    counts = None if graphs is None else graphs.counts
+    log(f"[{label}] mixed-iteration stages {json.dumps(counts)}")
+    if replayed and not (counts and counts["stages_replayed"] > 0):
+        raise AssertionError(f"{label}: no stage replayed from a graph")
 
 
 def _llama_backend(params, pages: int = SERVE["total_pages"]):
@@ -1989,6 +2001,7 @@ def phase_serve_obs(params, mars_wall: float) -> dict:
         f"{mars_wall:.3f}s for serve's MARS run of the same seed "
         f"({wall / mars_wall:.3f}x; logged, not gated)")
     _require_paged("serve-obs", launches)
+    _graph_stages("serve-obs", backend)
     return launches
 
 
@@ -2079,6 +2092,7 @@ def phase_serve_faults(params) -> dict:
     log(f"[serve-faults] every session finished after the windows in "
         f"{wall:.3f}s wall")
     _require_paged("serve-faults", launches)
+    _graph_stages("serve-faults", backend)
     return launches
 
 
@@ -2244,6 +2258,8 @@ def phase_serve_router(params) -> dict:
     if health.status != "critical":        # a dead replica: critical
         raise AssertionError(f"serve-router: health {health.status}")
     log(f"[serve-router] per-replica launches {json.dumps(per_replica)}")
+    for rid in ("a", "b"):
+        _graph_stages(f"serve-router:{rid}", backends[rid])
     for rid in ("a", "b"):
         _require_paged(f"serve-router:{rid}", {
             name: per_replica[rid].get(name, 0) for name in KERNELS})
@@ -2881,6 +2897,7 @@ def phase_serve_moe():
         f"; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
         " GB")
     log(f"[serve-moe] kernel launches on the MoE main path: {launches}")
+    _graph_stages("serve-moe", backend)
     if st["mixed_calls"] <= 0:
         raise AssertionError("serve-moe: no mixed iteration ran")
     for name in MAIN_PATH:

@@ -32,31 +32,38 @@ host crossings run on side CUDA streams driven by the background
 :class:`SwapStream` worker, into pinned host memory.
 
 Chunks and lane counts are bucketed to powers of two, as in the reference,
-so the same shapes recur. The PerfOracle (recompute_time / prefill_rate /
-swap_time) is calibrated at startup by timing one prefill chunk, one
-decode step and one page (or slot) round trip, synchronising the card
-inside each timed region.
+so the same shapes recur. On the card the paged layout's mixed iteration
+replays its two stages (each pack, then the decode lanes) from CUDA
+graphs, one per shape bucket (:class:`_StepGraphs`). The PerfOracle
+(recompute_time / prefill_rate / swap_time) is calibrated at startup by
+timing one prefill chunk, one decode step (replayed from their graphs
+where those engage) and one page (or slot) round trip, synchronising the
+card inside each timed region.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.session import Session
 from repro_torch.engine.backend import BatchWork
+from repro_torch.kernels.paged_attention import paged_attention_fused
+from repro_torch.kernels.paged_flash_attention import paged_flash_attention
 from repro_torch.kvcache.disk_tier import DiskFileStore
 from repro_torch.kvcache.pool import DeviceBindingMap
 from repro_torch.kvcache.swap_stream import SwapStream, TransferFuture
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (KVCache, PagedKVCache, init_lm,
-                                            lm_decode, lm_decode_paged,
-                                            lm_mixed_paged, lm_prefill_paged,
-                                            lm_step, supports_paged)
+from repro_torch.models.transformer import (
+    KVCache, PagedKVCache, init_lm, lm_decode, lm_decode_next_paged,
+    lm_decode_paged, lm_mixed_paged, lm_pack_next_paged, lm_prefill_paged,
+    lm_step, supports_paged)
 from repro_torch.obs import spans
 
 
@@ -311,6 +318,161 @@ def _from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return t.view(dtype) if dtype == torch.bfloat16 else t
 
 
+# ---------------------------------------------------------------------------
+# the mixed iteration's stages as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the kernels whose ``.launches`` a replay adds to, as its capture counted
+_COUNTED = (paged_attention_fused, paged_flash_attention)
+EAGER, CAPTURED, REPLAYED = ("stages_eager", "stages_captured",
+                             "stages_replayed")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _graphable(cache: PagedKVCache, params) -> bool:
+    """Whether the mixed iteration may be captured: the pool and every
+    weight CUDA tensors that are not DTensors (a mesh's collectives and
+    the CPU's plain kernels run eagerly)."""
+    return all(t.device.type == "cuda" and not isinstance(t, DTensor)
+               for t in (cache.k, cache.v, *_leaves(params)))
+
+
+@contextlib.contextmanager
+def _on_side(stream):
+    """Run on ``stream`` after the current stream's work so far; the
+    current stream's later work waits for it."""
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        yield
+    cur.wait_stream(stream)
+
+
+class _CudaGraph:
+    """One stage's CUDA graph. ``warm`` runs the stage eagerly and
+    ``capture`` records it, both on the side stream that every capture
+    shares, so a stage's lazy set-up on that stream (a cuBLAS workspace)
+    happens before its capture; ``replay`` launches the graph on the
+    current stream. Captures use ``CUDAGraph.capture_begin`` directly:
+    the ``torch.cuda.graph`` context collects garbage and empties the
+    allocator's cache at each capture. ``thread_local``: the swap
+    stream's worker and the tool threads go on calling CUDA while a
+    capture is open."""
+
+    def __init__(self, pool, stream):
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool, self.stream = pool, stream
+
+    def warm(self, fn):
+        with _on_side(self.stream):
+            return fn()
+
+    def capture(self, fn):
+        with _on_side(self.stream):
+            self.graph.capture_begin(pool=self.pool,
+                                     capture_error_mode="thread_local")
+            try:
+                return fn()
+            finally:
+                self.graph.capture_end()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _Stage:
+    __slots__ = ("graph", "inputs", "out", "launches")
+
+    def __init__(self, graph):
+        self.graph = graph
+        self.inputs: Optional[List[torch.Tensor]] = None   # once captured
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Tuple[int, ...] = ()
+
+
+class _StepGraphs:
+    """The mixed iteration's stages as CUDA graphs, one per shape bucket.
+
+    A stage is keyed by the bucket its inputs show: ``("pack", C, Np)``
+    or ``("decode", B, maxp)``. Its first sighting runs it eagerly (the
+    warm-up); the second copies the inputs into buffers the graph owns,
+    captures the stage over them and replays it once for the iteration's
+    result; every later sighting copies the inputs into those buffers and
+    replays. ``run`` returns the stage's output and the counter of what
+    it did (``EAGER``, ``CAPTURED``, ``REPLAYED``), which ``counts``
+    tallies over the object's life. A captured stage's
+    output is its graph's own buffer in the shared pool, where a graph
+    captured later may place its temporaries: read or copy it before any
+    other stage of this ``_StepGraphs`` runs.
+
+    Every graph allocates from one pool: replays run one at a time on the
+    current stream and each graph's buffers stay referenced, so their
+    temporaries may share memory. A graph writes the page pool at the
+    addresses it captured: ``follow`` drops every stage when the pool's
+    storage is not the one they saw. A replay adds the launches of the
+    paged kernels its capture counted, so ``.launches`` stay true counts.
+    ``new_graph`` makes a stage's graph (by default a ``_CudaGraph`` on
+    the side stream and pool all of them share, on ``device``)."""
+
+    def __init__(self, device=None,
+                 new_graph: Optional[Callable[[], object]] = None):
+        self.device = device
+        self.stages: Dict[tuple, _Stage] = {}
+        self.counts = dict.fromkeys((EAGER, CAPTURED, REPLAYED), 0)
+        self._ptrs: Optional[Tuple[int, int]] = None
+        self._side = self._pool = None
+        self.new_graph = new_graph or self._cuda_graph
+
+    def _cuda_graph(self) -> _CudaGraph:
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return _CudaGraph(self._pool, self._side)
+
+    def follow(self, cache: PagedKVCache) -> None:
+        ptrs = (cache.k.data_ptr(), cache.v.data_ptr())
+        if ptrs != self._ptrs:
+            self.stages.clear()
+            self._ptrs = ptrs
+
+    def drop(self) -> None:
+        self.stages.clear()
+
+    def run(self, key: tuple, fn: Callable[..., torch.Tensor],
+            args: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, str]:
+        out, how = self._run(key, fn, args)
+        self.counts[how] += 1
+        return out, how
+
+    def _run(self, key, fn, args):
+        st = self.stages.get(key)
+        if st is None:
+            self.stages[key] = _Stage(self.new_graph())
+            return self.stages[key].graph.warm(lambda: fn(*args)), EAGER
+        if st.inputs is None:
+            inputs = [a.clone() for a in args]
+            before = [f.launches for f in _COUNTED]
+            st.out = st.graph.capture(lambda: fn(*inputs))
+            st.inputs = inputs
+            st.launches = tuple(f.launches - n
+                                for f, n in zip(_COUNTED, before))
+            st.graph.replay()
+            return st.out, CAPTURED
+        for s, a in zip(st.inputs, args):
+            s.copy_(a)
+        st.graph.replay()
+        for f, n in zip(_COUNTED, st.launches):
+            f.launches += n
+        return st.out, REPLAYED
+
+
 class _PagedLayout:
     """Global page pool driven by BlockPool block tables.
 
@@ -351,6 +513,10 @@ class _PagedLayout:
         self._d2h: Dict[int, TransferFuture] = {}
         self._prefetch: Dict[int, tuple] = {}
         self._dropped: set = set()
+        # run_mixed's stages replayed from CUDA graphs (card only, no mesh)
+        self.graphs: Optional[_StepGraphs] = (
+            _StepGraphs(self.dev) if _graphable(self.cache, backend.params)
+            else None)
 
     # --- device arrays and the compute calls ------------------------------
     def _t(self, a) -> torch.Tensor:
@@ -393,7 +559,10 @@ class _PagedLayout:
     def calibrate(self) -> None:
         """Time one 64-token prefill chunk, one decode step and one page
         round trip, all parked on the scratch page (the calibration writes
-        go there), synchronising the card inside each timed region."""
+        go there), synchronising the card inside each timed region. Where
+        ``self.graphs`` engage, the chunk and the step are timed as
+        ``run_mixed`` serves them: a stage's graph replayed (the untimed
+        runs before warm it and capture it)."""
         b = self.b
         C = 64
         toks = np.zeros((1, C), np.int32)
@@ -402,11 +571,6 @@ class _PagedLayout:
         table = np.full((Np,), self.scratch, np.int32)
         wpid = np.full((C,), self.scratch, np.int32)
         woff = np.arange(C, dtype=np.int32) % self.page
-
-        def pf():
-            int(self._prefill_fn(toks, pos, table, wpid, woff, C, C - 1))
-
-        b._prefill_s_per_tok = b._time_once(pf) / C
         B = _bucket(b.max_slots, lo=1)
         tok1 = np.zeros((B,), np.int32)
         pos1 = np.zeros((B,), np.int32)
@@ -415,9 +579,29 @@ class _PagedLayout:
         wp = np.full((B,), self.scratch, np.int32)
         wo = np.zeros((B,), np.int32)
 
-        def df():
-            self._decode_fn(tok1, pos1, tables, lens, wp, wo).cpu()
+        if self.graphs is None:
+            def pf():
+                int(self._prefill_fn(toks, pos, table, wpid, woff, C, C - 1))
 
+            def df():
+                self._decode_fn(tok1, pos1, tables, lens, wp, wo).cpu()
+        else:
+            g = self.graphs
+            g.follow(self.cache)
+            pack = [self._t(a) for a in (toks, pos, table, wpid, woff,
+                                         np.int32(C),
+                                         np.array([C - 1], np.int32))]
+            lanes = [self._t(a) for a in (tok1, pos1)] + [tables] + [
+                self._t(a) for a in (lens, wp, wo)]
+
+            def pf():
+                int(g.run(("pack", C, Np), self._pack_next, pack)[0])
+
+            def df():
+                g.run(("decode", B, 2), self._decode_next, lanes)[0].cpu()
+
+            pf(), df()                   # the first sightings, eager
+        b._prefill_s_per_tok = b._time_once(pf) / C
         b._decode_s_per_step = b._time_once(df)
         page_bytes = 2 * self.cache.k[:, 0].numel() * \
             self.cache.k.element_size()
@@ -449,6 +633,8 @@ class _PagedLayout:
     def close(self) -> None:
         if self.stream is not None:
             self.stream.close()
+        if self.graphs is not None:
+            self.graphs.drop()
         if self._filestore is not None:
             self._filestore.close()
             self._filestore = None
@@ -746,9 +932,13 @@ class _PagedLayout:
         prefill chunk becomes a pack and every decode lane advances one
         token. Pack shape (C, Np), lane count B and pack count P are
         bucketed to powers of two; slack packs/lanes park on the scratch
-        page (the construction ``calibrate`` warms). Spans (``obs.spans``):
-        ``run_mixed.inputs``, ``.forward`` (the enqueue alone),
-        ``.readback`` and ``.commit``, in that order."""
+        page (the construction ``calibrate`` warms). On the card the call
+        runs as its stages through ``self.graphs``. Spans
+        (``obs.spans``): ``run_mixed.inputs``, ``.forward`` (the enqueue
+        alone, or the graphs' input copies and replays), ``.readback``
+        and ``.commit``, in that order; counters on ``run_mixed``: each
+        stage (a pack, the decode lanes) as ``stages_eager``,
+        ``stages_captured`` or ``stages_replayed``."""
         with spans.span("run_mixed"):
             with spans.span("run_mixed.inputs"):
                 packs, decodes, C, Np, args = self._mixed_inputs(work)
@@ -759,8 +949,14 @@ class _PagedLayout:
             spans.count("lanes_real", len(decodes))
             spans.count("lanes_computed", B)
             with spans.span("run_mixed.forward"):
-                p_next, d_next, self.cache = lm_mixed_paged(
-                    self.b.cfg, self.b.params, self.cache, *args)
+                if self.graphs is None:
+                    p_next, d_next, self.cache = lm_mixed_paged(
+                        self.b.cfg, self.b.params, self.cache, *args)
+                    stages = {EAGER: P + bool(B)}
+                else:
+                    p_next, d_next, stages = self._graphed_step(args)
+            for name, n in stages.items():
+                spans.count(name, n)
             with spans.span("run_mixed.readback"):
                 if packs:
                     p_next = p_next.cpu().numpy()
@@ -777,6 +973,46 @@ class _PagedLayout:
                     s.meta.setdefault("context_ids", []).append(tok)
                 for _ in packs:
                     self._account_prefill(Np, C)
+
+    def _graphed_step(self, args):
+        """``lm_mixed_paged`` over ``args`` as its stages through
+        ``self.graphs``: each pack (keyed ``("pack", C, Np)``), then the
+        decode lanes (``("decode", B, maxp)``). Returns (p_next (P,),
+        d_next (B,), the stages counted by what ran them)."""
+        g = self.graphs
+        g.follow(self.cache)
+        p_toks, p_pos, p_tables, p_wpid, p_woff, p_kvlen, p_last = args[:7]
+        d_args = args[7:]
+        P, C, Np = p_toks.shape[0], p_toks.shape[2], p_tables.shape[1]
+        B, maxp = d_args[2].shape                    # d_tables
+        stages = {EAGER: 0, CAPTURED: 0, REPLAYED: 0}
+        # a graph's output may be overwritten by any other stage's replay:
+        # each pack's is copied out before the next stage runs, and the
+        # decode lanes' (the last stage) is read back before the next
+        # iteration
+        p_next = torch.empty((P,), dtype=torch.int32, device=self.dev)
+        for j in range(P):
+            out, how = g.run(("pack", C, Np), self._pack_next, (
+                p_toks[j], p_pos[j], p_tables[j], p_wpid[j], p_woff[j],
+                p_kvlen[j], p_last[j:j + 1]))
+            p_next[j:j + 1].copy_(out)
+            stages[how] += 1
+        d_next = torch.empty((0,), dtype=torch.int32, device=self.dev)
+        if B:
+            d_next, how = g.run(("decode", B, maxp), self._decode_next,
+                                d_args)
+            stages[how] += 1
+        return p_next, d_next, stages
+
+    def _pack_next(self, *a) -> torch.Tensor:
+        """The pack stage over ``a`` (``lm_pack_next_paged``'s arrays)."""
+        return lm_pack_next_paged(self.b.cfg, self.b.params, self.cache,
+                                  *a)[0]
+
+    def _decode_next(self, *a) -> torch.Tensor:
+        """The decode stage over ``a`` (``lm_decode_next_paged``'s)."""
+        return lm_decode_next_paged(self.b.cfg, self.b.params, self.cache,
+                                    *a)[0]
 
     def _mixed_inputs(self, work: BatchWork):
         """``run_mixed``'s packs ``(s, seg, start, lease)``, lanes

@@ -590,6 +590,41 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     return _unembed(cfg, params, x), cache
 
 
+def lm_pack_next_paged(cfg: ModelConfig, params, cache: PagedKVCache,
+                       tokens, positions, table, write_pages, write_offsets,
+                       kv_len, last_idx, *,
+                       pctx: Optional[ParallelCtx] = None):
+    """The pack stage of ``lm_mixed_paged``: one pack's
+    ``lm_prefill_paged`` (the arguments as there), the unembed of its last
+    real token ``last_idx`` ((1,) int32) and the argmax. Returns
+    (next (1,) int32, cache). Shapes follow the pack's (C, Np) alone and
+    nothing is read back, so one capture serves every pack of a bucket."""
+    with spans.span("step.pack"):
+        hidden, cache = lm_prefill_paged(
+            cfg, params, cache, tokens, positions, table, write_pages,
+            write_offsets, kv_len, pctx=pctx, return_hidden=True)
+        # logits at the pack's last token only (a whole chunk's would be
+        # C x V floats). A one-element index tensor, not a 0-d one:
+        # indexing with a 0-d CUDA tensor reads it back to the host (a
+        # sync per pack)
+        logits = _unembed(cfg, params, hidden[0, last_idx.long()])
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def lm_decode_next_paged(cfg: ModelConfig, params, cache: PagedKVCache,
+                         tokens, positions, block_tables, lengths,
+                         write_pages, write_offsets, *,
+                         pctx: Optional[ParallelCtx] = None):
+    """The decode stage of ``lm_mixed_paged``: ``lm_decode_paged`` (the
+    arguments as there) and the argmax. Returns (next (B,) int32, cache)."""
+    with spans.span("step.decode"):
+        logits, cache = lm_decode_paged(cfg, params, cache, tokens,
+                                        positions, block_tables, lengths,
+                                        write_pages, write_offsets,
+                                        pctx=pctx)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
 def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
                    p_tokens, p_positions, p_tables, p_write_pages,
                    p_write_offsets, p_kv_lens, p_last_idx,
@@ -609,6 +644,9 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     d_write_pages/d_write_offsets (B,), d_tables (B, max_pages). ``P == 0``
     or ``B == 0`` skips that stage.
 
+    The iteration is the eager composition of its two stages,
+    ``lm_pack_next_paged`` once per pack and ``lm_decode_next_paged``
+    (which ``engine.torch_runner`` replays from CUDA graphs on the card).
     The pack-then-decode order is safe by the pool's write exclusivity: a
     pack writes KV only into its session's exclusively owned pages.
     Returns (p_next (P,) int32, d_next (B,) int32, cache).
@@ -618,27 +656,17 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     dev = cache.k.device
     nxt = []
     for j in range(p_tokens.shape[0]):
-        with spans.span("step.pack"):
-            hidden, cache = lm_prefill_paged(
-                cfg, params, cache, p_tokens[j], p_positions[j],
-                p_tables[j], p_write_pages[j], p_write_offsets[j],
-                p_kv_lens[j], pctx=pctx, return_hidden=True)
-            # logits at the pack's last token only (a whole chunk's would
-            # be C x V floats). A one-element index tensor, not a 0-d one:
-            # indexing with a 0-d CUDA tensor reads it back to the host (a
-            # sync per pack)
-            last = p_last_idx[j:j + 1].long()
-            logits = _unembed(cfg, params, hidden[0, last])
-            nxt.append(torch.argmax(logits, dim=-1)[0])
-    p_next = (torch.stack(nxt).to(torch.int32) if nxt
+        n, cache = lm_pack_next_paged(
+            cfg, params, cache, p_tokens[j], p_positions[j], p_tables[j],
+            p_write_pages[j], p_write_offsets[j], p_kv_lens[j],
+            p_last_idx[j:j + 1], pctx=pctx)
+        nxt.append(n)
+    p_next = (torch.cat(nxt) if nxt
               else torch.zeros((0,), dtype=torch.int32, device=dev))
     if d_tokens.shape[0] > 0:
-        with spans.span("step.decode"):
-            logits, cache = lm_decode_paged(cfg, params, cache, d_tokens,
-                                            d_positions, d_tables,
-                                            d_lengths, d_write_pages,
-                                            d_write_offsets, pctx=pctx)
-            d_next = torch.argmax(logits, dim=-1).to(torch.int32)
+        d_next, cache = lm_decode_next_paged(
+            cfg, params, cache, d_tokens, d_positions, d_tables, d_lengths,
+            d_write_pages, d_write_offsets, pctx=pctx)
     else:
         d_next = torch.zeros((0,), dtype=torch.int32, device=dev)
     return p_next, d_next, cache

@@ -11,8 +11,9 @@ the port wrote for itself, at each boundary of one serving iteration::
       run_mixed                     engine.torch_runner._PagedLayout
         run_mixed.inputs              pack and lane arrays, H2D copies
           context_ids                 TorchBackend._context_ids
-        run_mixed.forward             the lm_mixed_paged enqueue
-          step.pack, step.decode      models.transformer.lm_mixed_paged
+        run_mixed.forward             the enqueue, or the graph replays
+          step.pack, step.decode      models.transformer.lm_*_next_paged
+                                      (none for a replayed stage)
             layer.attn, layer.ffn     lm_prefill_paged / lm_decode_paged
               moe.route, moe.dispatch, moe.experts, moe.combine
         run_mixed.readback            the tokens' .cpu() reads

@@ -4,6 +4,7 @@ lead-in and a fixed window, read every metric, check the outputs.
 Everything that belongs to one configuration, one traffic mix or one
 metric is a file the harness finds by the name ``BENCHMARK.json`` gives:
 ``configs/<config>.json`` (through the configuration's ``file``),
+``arch/<arch>.py`` (through the configuration's ``"arch"``),
 ``traffic/<traffic>.json`` and ``metrics/<metric>.py``.
 
 The timed path is the program's live entry: ``engine.engine.run_live``
@@ -28,7 +29,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from mars_bench import check, generator, trace, weights
+from mars_bench import arch, check, generator, trace, weights
 from mars_bench.window import (Ev, Iter, Run, attempted_failed,
                                iters_in_window)
 
@@ -52,14 +53,17 @@ def _json(path: Path) -> Dict:
 
 
 def cell_files(bench: Dict, workload: str, root: Path = REPO):
-    """(cell entry, configuration numbers, traffic parameters)."""
+    """(cell entry, configuration numbers, traffic parameters). The
+    configuration's architecture is looked up in ``root``'s tree."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
         raise SystemExit(f"unknown workload {workload!r}; BENCHMARK.json "
                          f"has {sorted(cells)}")
     cell = cells[workload]
     conf = {c["name"]: c for c in bench["configs"]}[cell["config"]]
-    return (cell, _json(root / conf["file"]),
+    cfg = _json(root / conf["file"])
+    cfg[arch.DIR] = str(root / HERE.name / "arch")
+    return (cell, cfg,
             _json(root / HERE.name / "traffic" / f"{cell['traffic']}.json"))
 
 
@@ -83,24 +87,7 @@ def reader(name: str, root: Path = REPO) -> Callable:
 
 def model_config(cfg: Dict):
     """The program's ``ModelConfig`` for a configuration file."""
-    from repro_torch.models.config import ModelConfig, MoEConfig
-    moe = None
-    if cfg.get("num_experts"):
-        moe = MoEConfig(num_experts=cfg["num_experts"],
-                        top_k=cfg["num_experts_per_tok"],
-                        d_ff_expert=cfg["moe_intermediate_size"],
-                        capacity_factor=cfg["capacity_factor"],
-                        shard_mode="tp")
-    return ModelConfig(
-        name=cfg["name"], family="moe" if moe else "dense",
-        n_layers=cfg["num_hidden_layers"], d_model=cfg["hidden_size"],
-        n_heads=cfg["num_attention_heads"],
-        n_kv_heads=cfg["num_key_value_heads"], head_dim=cfg["head_dim"],
-        d_ff=cfg["moe_intermediate_size"] if moe else cfg["intermediate_size"],
-        vocab_size=cfg["vocab_size"], rope_theta=float(cfg["rope_theta"]),
-        qkv_bias=bool(cfg.get("attention_bias")),
-        tie_embeddings=bool(cfg.get("tie_word_embeddings")),
-        norm_eps=float(cfg["rms_norm_eps"]), moe=moe)
+    return arch.module(cfg).program_config(cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,19 @@
-"""Plain PyTorch reference of the served decoder LMs (dense GQA and
-top-k MoE), in float32 with TF32 off.
+"""The plain PyTorch reference of the served models, in float32 with TF32
+off: the pieces every architecture shares, and ``forward_logits``, which
+hands a configuration to its architecture's ``arch/<name>.py``.
 
-It imports torch alone: nothing of the program under test. It takes the
-weights that the benchmark made (``weights.py``) and the token streams the
-served run fed, and works out again, from those alone, every hidden state,
-key and value the served path derived. Layer by layer over a whole stream,
-each layer's weights cast to float32 on their own, attention in blocks of
-query rows: so it fits beside the weights on the card.
+It imports torch and the benchmark's own modules: nothing of the program
+under test. It takes the weights that the benchmark made (``weights.py``)
+and the token streams the served run fed, and works out again, from those
+alone, every hidden state, key and value the served path derived. Layer
+by layer over a whole stream, each layer's weights cast to float32 on
+their own, attention in blocks of query rows: so it fits beside the
+weights on the card.
 
-The model follows the configuration's published equations as the program
-serves them: RMSNorm with the ``(1 + scale)`` convention, split-half RoPE,
-causal GQA (query head ``h`` reads key/value head ``h // G``), a SiLU-gated
-MLP, and for MoE a softmax router whose top-k weights are renormalised.
-The MoE layer keeps the program's capacity semantics (GShard dispatch,
-``capacity = max(8, int(C * k / E * capacity_factor))`` for a call of C
-rows, entries ranked token-major and k-minor, the overflow dropped). A
-call's drops depend on the tokens in that call, so ``moe_groups`` tells
-the reference which positions the served path routed together and at
-what padded width; a position alone in its group keeps all k experts.
+The MoE capacity semantics are the program's and shared by every MoE
+architecture (``_moe_keep``): GShard dispatch, ``capacity = max(8, int(C *
+k / E * capacity_factor))`` for a call of C rows, entries ranked
+token-major and k-minor, the overflow dropped.
 
 ``precision="fp8"`` is the control: the reference computed one step
 below the configuration's bf16, every tensor the program holds in bf16
@@ -33,6 +29,8 @@ from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from mars_bench import arch
 
 F32 = torch.float32
 ROW_BLOCK = 1024           # query rows of one attention block
@@ -116,7 +114,7 @@ def causal_attention(q, k, v):
 
 
 def _moe_keep(idx: torch.Tensor, groups: Sequence[Tuple[int, int, int]],
-              num_experts: int, top_k: int, capacity_factor: float):
+              experts: int, top_k: int, capacity_factor: float):
     """(T, k) bool: which routed entries the capacity dispatch keeps.
     ``groups``: (start, n, C) runs of positions routed in one call of C
     rows; every other position is alone (all its k entries kept)."""
@@ -127,40 +125,17 @@ def _moe_keep(idx: torch.Tensor, groups: Sequence[Tuple[int, int, int]],
         n = min(n, idx.shape[0] - start)
         if n <= 0:
             continue
-        cap = max(8, int(C * top_k / num_experts * capacity_factor))
+        cap = max(8, int(C * top_k / experts * capacity_factor))
         flat = idx[start:start + n].reshape(-1)
-        onehot = torch.nn.functional.one_hot(flat, num_experts)
+        onehot = torch.nn.functional.one_hot(flat, experts)
         rank = (onehot.cumsum(0) * onehot).sum(-1) - 1   # token-major
         keep[start:start + n] = (rank < cap).reshape(n, -1)
     return keep
 
 
-def _moe(cfg, lp, h, mm: _Mm, groups, tally: Optional[Dict]):
-    E, K = cfg["num_experts"], cfg["num_experts_per_tok"]
-    probs = torch.softmax(mm(h, mm.w(lp["router"])), dim=-1)
-    w, idx = torch.topk(probs, K, dim=-1)
-    w = w / (w.sum(-1, keepdim=True) + 1e-9)
-    keep = _moe_keep(idx, groups, E, K, cfg["capacity_factor"])
-    if tally is not None:
-        tally["moe_entries"] = tally.get("moe_entries", 0) + keep.numel()
-        tally["moe_dropped"] = (tally.get("moe_dropped", 0)
-                                + int((~keep).sum()))
-    w = torch.where(keep, w, torch.zeros_like(w))
-    out = torch.zeros_like(h)
-    for e in range(E):
-        rows, slot = torch.nonzero(idx == e, as_tuple=True)
-        if rows.numel() == 0:
-            continue
-        x = h[rows]
-        g = mm(x, mm.w(lp["w_gate"][e]))
-        u = mm(x, mm.w(lp["w_up"][e]))
-        y = mm.hold(mm(torch.nn.functional.silu(g) * u,
-                       mm.w(lp["w_down"][e])))
-        out.index_add_(0, rows, y * w[rows, slot][:, None])
-    return out
-
-
 def _mlp(lp, h, mm: _Mm):
+    """A SiLU-gated MLP (``w_gate``, ``w_up``, ``w_down``) over the rows
+    of ``h``, in blocks of FFN_BLOCK rows."""
     wg, wu, wd = (mm.w(lp["w_gate"]), mm.w(lp["w_up"]), mm.w(lp["w_down"]))
     out = torch.empty_like(h)
     for r0 in range(0, h.shape[0], FFN_BLOCK):
@@ -171,6 +146,7 @@ def _mlp(lp, h, mm: _Mm):
 
 
 def _layer(params, l: int) -> Dict:
+    """Layer ``l``'s weights out of the stacked ``params["layers"]``."""
     def pick(t):
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[l]
@@ -187,39 +163,9 @@ def forward_logits(cfg: Dict, params: Dict, tokens: Sequence[int],
     ``params``: the served weights, any dtype and device. ``tally``, when
     given, counts the routed entries (``moe_entries``, over every MoE
     layer) and those the capacity dispatch drops (``moe_dropped``)."""
-    dev = params["embed"].device
-    mm = _Mm(precision)
-    D, Hq, Hkv = (cfg["hidden_size"], cfg["num_attention_heads"],
-                  cfg["num_key_value_heads"])
-    Dh = cfg["head_dim"]
-    eps, theta = cfg["rms_norm_eps"], cfg["rope_theta"]
-    tok = torch.as_tensor(list(tokens), dtype=torch.long, device=dev)
-    pos = torch.arange(tok.numel(), device=dev)
-    with exact_f32(), torch.no_grad():
-        x = mm.hold(params["embed"][tok].to(F32))
-        for l in range(cfg["num_hidden_layers"]):
-            lp = _layer(params, l)
-            a = lp["attn"]
-            h = rms_norm(x, lp["ln_attn"]["scale"], eps)
-            q, k, v = (mm(h, mm.w(a[n])) for n in ("wq", "wk", "wv"))
-            if cfg.get("attention_bias"):
-                q, k, v = (q + a["bq"].to(F32), k + a["bk"].to(F32),
-                           v + a["bv"].to(F32))
-            q = rope(q.view(-1, Hq, Dh), pos, theta)
-            k = rope(k.view(-1, Hkv, Dh), pos, theta)
-            q, k, v = mm.hold(q), mm.hold(k), mm.hold(v.view(-1, Hkv, Dh))
-            o = causal_attention(q, k, v)
-            x = mm.hold(x + mm.hold(mm(o.reshape(-1, Hq * Dh),
-                                       mm.w(a["wo"]))))
-            h = rms_norm(x, lp["ln_mlp"]["scale"], eps)
-            f = (_moe(cfg, lp["moe"], h, mm, moe_groups, tally) if "moe" in lp
-                 else _mlp(lp["mlp"], h, mm))
-            x = mm.hold(x + mm.hold(f))
-        idx = torch.as_tensor(list(rows), dtype=torch.long, device=dev)
-        hf = rms_norm(x[idx], params["ln_final"]["scale"], eps)
-        head = (params["embed"].T if cfg.get("tie_word_embeddings")
-                else params["lm_head"])
-        return mm(hf, mm.w(head))
+    return arch.module(cfg).forward_logits(
+        cfg, params, tokens, rows, moe_groups=moe_groups,
+        precision=precision, tally=tally)
 
 
 def gaps_sd(ref: torch.Tensor, tokens: Sequence[int]) -> List[float]:

@@ -9,13 +9,17 @@ PEAK_FLOPS)``, the bound formula of ``chip_smoke.py``. Operations and
 bytes are counted from the shapes of the work the schedule asked for:
 each input byte read once, each output byte written once, causal
 attention over the keys each query needs, top-k experts (never the
-capacity a dispatch computes). So they read the same whatever
-implements the step, and a share computed from them cannot pass 100 %
-unless the time leaves out part of the work.
+capacity a dispatch computes). So they read the same whatever implements
+the step, and a share computed from them cannot pass 100 % unless the
+time leaves out part of the work. The counts that depend on the
+architecture are its module's (``arch/<name>.py``); this file composes
+them.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, Tuple
+
+from mars_bench import arch
 
 PEAK_FLOPS = 989e12        # bf16 dense, tensor cores
 HBM_BPS = 3.35e12          # bytes / s
@@ -28,23 +32,13 @@ def least_s(flops: float, nbytes: float) -> float:
 
 def active_params(cfg: Dict) -> int:
     """Non-embedding parameters one token runs through (top-k experts)."""
-    D, Dh = cfg["hidden_size"], cfg["head_dim"]
-    qd = cfg["num_attention_heads"] * Dh
-    kd = cfg["num_key_value_heads"] * Dh
-    attn = D * qd + 2 * D * kd + qd * D
-    if cfg.get("num_experts"):
-        ffn = (D * cfg["num_experts"]
-               + cfg["num_experts_per_tok"] * 3 * D
-               * cfg["moe_intermediate_size"])
-    else:
-        ffn = 3 * D * cfg["intermediate_size"]
-    return cfg["num_hidden_layers"] * (attn + ffn)
+    return arch.module(cfg).active_params(cfg)
 
 
 def attn_flops(cfg: Dict, keys: int) -> float:
-    """QK^T and PV of one query over ``keys`` keys, every layer."""
-    return (4.0 * cfg["num_hidden_layers"] * cfg["num_attention_heads"]
-            * cfg["head_dim"] * keys)
+    """Attention's operations for one query over ``keys`` keys, every
+    layer."""
+    return arch.module(cfg).attn_flops(cfg, keys)
 
 
 def token_flops(cfg: Dict, keys: int, logits: bool) -> float:
@@ -65,28 +59,19 @@ def pack_flops(cfg: Dict, start: int, n: int) -> float:
 
 
 def kv_bytes_per_token_layer(cfg: Dict) -> int:
-    return 2 * cfg["num_key_value_heads"] * cfg["head_dim"] * BF16
+    """Bytes of KV cache one token holds in one layer."""
+    return arch.module(cfg).kv_bytes_per_token_layer(cfg)
 
 
 def decode_attn_work(cfg: Dict, lengths: Iterable[int]) -> Tuple[float, float]:
     """One layer's decode attention over lanes of ``lengths`` keys each:
-    (flops, bytes). Bytes: every key and value read once, each lane's
-    query read and output written."""
-    Hq, Dh = cfg["num_attention_heads"], cfg["head_dim"]
-    lengths = list(lengths)
-    flops = 4.0 * Hq * Dh * sum(lengths)
-    nbytes = (kv_bytes_per_token_layer(cfg) * sum(lengths)
-              + 2 * Hq * Dh * BF16 * len(lengths))
-    return flops, nbytes
+    (flops, bytes), each input byte read and each output byte written
+    once."""
+    return arch.module(cfg).decode_attn_work(cfg, lengths)
 
 
 def prefill_attn_work(cfg: Dict, start: int, n: int) -> Tuple[float, float]:
     """One layer's causal attention of a pack of ``n`` queries at
-    ``start..``: (flops, bytes). Bytes: the ``start + n`` keys and values
-    read once, the queries read and the outputs written."""
-    Hq, Dh = cfg["num_attention_heads"], cfg["head_dim"]
-    keys = n * start + n * (n + 1) // 2
-    flops = 4.0 * Hq * Dh * keys
-    nbytes = (kv_bytes_per_token_layer(cfg) * (start + n)
-              + 2 * Hq * Dh * BF16 * n)
-    return flops, nbytes
+    ``start..``: (flops, bytes), each input byte read and each output byte
+    written once."""
+    return arch.module(cfg).prefill_attn_work(cfg, start, n)

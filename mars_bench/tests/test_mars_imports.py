@@ -46,8 +46,13 @@ def test_a_run_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
+    archs = sorted(f[:-3] for f in os.listdir(os.path.join(
+        ROOT, "mars_bench", "arch")) if f.endswith(".py"))
+    assert "gqa" in archs
     top = loaded("import mars_bench.reference, mars_bench.weights, "
-                 "mars_bench.roofline")
+                 "mars_bench.roofline, mars_bench.arch\n"
+                 + "".join(f"import mars_bench.arch.{a}\n" for a in archs
+                           if a != "__init__"))
     assert not top & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
 
 

@@ -221,6 +221,14 @@ families add, in run order:
   1,500, non-causal) and zamba2's shared block (B 8, H 32, T 1,024,
   causal): event and device times, the plain version, SDPA and the bound,
   logged apart from the kernels JSON;
+- timing: the MLA kernels (paged_mla, CUDA) at kanana-2-30b-a3b's
+  widths: decode over 32 lanes of 20,000-32,000 latent rows (cold L2) and
+  one lane of 32,768, a 2,048-row prefill pack at 26,000; each against
+  its plain version (every row, element by element within MLA_ATOL +
+  MLA_RTOL x the value, at most BF16_TOL; a shifted block table and, in
+  decode, a skipped
+  split must depart by more than that) and the
+  published attention's bound, logged apart from the kernels JSON;
 - serve-zamba, profile-zamba, serve-whisper (after profile-rwkv):
   zamba2-1.2b at full width in bf16 (8 prompts of 1,024 in one prefill,
   flash_attention exactly 6 times, the cache padded to 1,056, 16 greedy
@@ -273,7 +281,7 @@ from repro_torch.engine.engine import Engine, EngineConfig, run_live  # noqa: E4
 from repro_torch.engine.faults import Fault, FaultPlan  # noqa: E402
 from repro_torch.engine.tools import RealToolExecutor  # noqa: E402
 from repro_torch.engine.torch_runner import TorchBackend  # noqa: E402
-from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import _build, paged_mla, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     _FlashAttention, flash_attention)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
@@ -3490,6 +3498,168 @@ def phase_flash_ssm_timing(errs: Errors) -> None:
             f"sdpa {s_err:.3e} (tol {tol:.3e})")
 
 
+# the MLA kernels at kanana-2-30b-a3b's widths (32 heads, a 512 + 64
+# latent row, page 32): the decode lanes and a pack of the families cell
+MLA_H, MLA_R, MLA_DR, MLA_PAGE = 32, 512, 64, 32
+MLA_DECODE = dict(lanes=32, lo=20000, hi=32000)
+MLA_PREFILL = dict(start=26000, n=2048)
+MLA_SCALE = 192 ** -0.5
+MLA_RTOL, MLA_ATOL = 2 ** -5, 1e-3   # tests/test_torch_mla.py's KERNEL_*
+
+
+def _mla_check(errs, name, got, want, what):
+    """Element by element within MLA_ATOL + MLA_RTOL x the value (at most
+    BF16_TOL); returns
+    the largest ratio of the gap to that limit."""
+    errs.check(name, torch.bfloat16, got, want, float("inf"), what)
+    return _mla_excess(got, want, name, what)
+
+
+def _mla_excess(got, want, name=None, what=""):
+    g, w = got.float(), want.float()
+    limit = (MLA_ATOL + MLA_RTOL * w.abs()).clamp(max=BF16_TOL)
+    ratio = ((g - w).abs() / limit).max().item()
+    if name is not None and not ratio <= 1.0:
+        raise AssertionError(f"{name} bfloat16 {what}: a gap {ratio} times "
+                             "its limit")
+    return ratio
+
+
+def _mla_pool(gen, pages):
+    return (torch.randn((pages + 1, MLA_PAGE, MLA_R + MLA_DR), generator=gen,
+                        device=DEV) * 0.5).to(torch.bfloat16)
+
+
+def phase_mla_timing(errs: Errors) -> None:
+    """``paged_mla_decode`` (32 lanes of 20,000-32,000 keys, cold L2: each
+    call on the next of ROTATION tables over disjoint pages; then one lane
+    of 32,768) and ``paged_mla_prefill`` (a 2,048-token pack at 26,000):
+    CUDA-event and profiler device times against the plain versions and
+    the bound of the published attention (``2 H (192 + 128)`` operations a
+    query-key pair, 1,152 B a key; the absorbed kernels do 3.4 times those
+    operations). No PyTorch call computes attention over a latent page
+    pool: no library time. Logged only."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    W, B = MLA_R + MLA_DR, MLA_DECODE["lanes"]
+    pair_flops, key_bytes = 2 * MLA_H * (192 + 128), W * 2
+    q_bytes = MLA_H * (192 + 128) * 2
+    maxp = -(-MLA_DECODE["hi"] // MLA_PAGE)
+    lens = torch.randint(MLA_DECODE["lo"], MLA_DECODE["hi"] + 1, (B,),
+                         generator=gen, device=DEV).int()
+    pool = _mla_pool(gen, ROTATION * B * maxp)
+    perm = torch.randperm(ROTATION * B * maxp, generator=gen, device=DEV)
+    tables = perm.int().reshape(ROTATION, B, maxp).contiguous()
+    q = torch.randn((B, MLA_H, W), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    new = torch.randn((B, W), generator=gen, device=DEV).to(torch.bfloat16)
+    last = (lens - 1).long()
+    wo = (last % MLA_PAGE).int()
+    slots = [t[torch.arange(B, device=DEV), last // MLA_PAGE].contiguous()
+             for t in tables]
+
+    def decode(i):
+        return lambda: paged_mla.paged_mla_decode(
+            q, pool, tables[i], lens, new, slots[i], wo, scale=MLA_SCALE,
+            rank=MLA_R)
+
+    def plain():
+        return ref.paged_mla_decode_ref(q, pool, tables[0], lens,
+                                        scale=MLA_SCALE, rank=MLA_R)
+
+    got = decode(0)()                   # writes the new rows, then
+    want = plain()                      # the plain version reads them
+    _mla_check(errs, "paged_mla_decode", got, want, "timing inputs")
+    n_pages = ROTATION * B * maxp
+    shifted = torch.where(tables[0] < n_pages - 1, tables[0] + 1, 0).int()
+    _, per = paged_mla.decode_splits(B, maxp * MLA_PAGE)
+    kv = ref._mla_gather(pool, tables[0])
+    s = torch.einsum("bhd,bsd->bhs", q.float(), kv) * MLA_SCALE
+    pos = torch.arange(kv.shape[1], device=DEV)
+    see = (pos[None] < lens.long()[:, None]) & ~((pos >= per)
+                                                 & (pos < 2 * per))
+    s = s.masked_fill(~see[:, None], float("-inf"))
+    skipped = torch.einsum("bhs,bsr->bhr", torch.softmax(s, -1),
+                           kv[..., :MLA_R]).to(q.dtype)
+    del kv, s
+    faults = {"shifted table": ref.paged_mla_decode_ref(
+        q, pool, shifted, lens, scale=MLA_SCALE, rank=MLA_R),
+        "skipped split": skipped}
+    for what, bad in faults.items():
+        ratio = _mla_excess(bad, want)
+        log(f"[timing] paged_mla_decode planted fault, {what}: departs "
+            f"{ratio:.2f} times the limit")
+        if not ratio > 1.0:
+            raise AssertionError(f"paged_mla_decode: a {what} departs only "
+                                 f"{ratio} times the limit")
+    del faults, skipped
+    keys = int(lens.sum())
+    bound, by = _bound(key_bytes * keys + q_bytes * B, pair_flops * keys,
+                       BF16_FLOPS)
+    run = _cycle([decode(i) for i in range(ROTATION)])
+    k_ms, p_ms = time_ms(run), time_ms(plain, 5)
+    d_ms = device_ms(run, "paged_mla_decode")
+    log(f"[timing] paged_mla_decode {B} lanes of {MLA_DECODE['lo']}-"
+        f"{MLA_DECODE['hi']} keys ({keys} in all), cold L2: kernel "
+        f"{k_ms:.4f} ms (device {d_ms:.4f})  plain {p_ms:.4f} ms  bound "
+        f"{bound:.4f} ms ({by}: {keys * key_bytes / 1e6:.2f} MB of latent "
+        f"rows)  bound/kernel device {bound / d_ms:.3f}")
+    one = [torch.tensor([32768], dtype=torch.int32, device=DEV),
+           tables[1][:1, :1024].contiguous()]
+
+    def long_lane():
+        return paged_mla.paged_mla_decode(
+            q[:1], pool, one[1], one[0], new[:1], one[1][:, -1].contiguous(),
+            wo[:1].clone().fill_(MLA_PAGE - 1), scale=MLA_SCALE, rank=MLA_R)
+    bound, by = _bound(key_bytes * 32768 + q_bytes, pair_flops * 32768,
+                       BF16_FLOPS)
+    d_ms = device_ms(long_lane, "paged_mla_decode")
+    log(f"[timing] paged_mla_decode one lane of 32,768 keys: device "
+        f"{d_ms:.4f} ms  bound {bound:.4f} ms ({by})  bound/kernel device "
+        f"{bound / d_ms:.3f}")
+
+    start, n = MLA_PREFILL["start"], MLA_PREFILL["n"]
+    kv = start + n
+    Np = -(-kv // MLA_PAGE) + 1
+    ppool = _mla_pool(gen, Np)
+    table = torch.randperm(Np, generator=gen, device=DEV).int()[None]
+    qp = torch.randn((1, n, MLA_H, W), generator=gen,
+                     device=DEV).to(torch.bfloat16)
+    kvl = torch.tensor([kv], dtype=torch.int32, device=DEV)
+    q0 = torch.tensor([start], dtype=torch.int32, device=DEV)
+
+    def prefill():
+        return paged_mla.paged_mla_prefill(qp, ppool, table, kvl, q0,
+                                           scale=MLA_SCALE, rank=MLA_R)
+
+    def pplain(tbl, i):
+        return ref.paged_mla_prefill_ref(qp[:, i:i + 128], ppool, tbl, kvl,
+                                         q0 + i, scale=MLA_SCALE,
+                                         rank=MLA_R)
+    got = prefill()
+    shifted = torch.where(table < Np - 1, table + 1, 0).int()
+    fault = 0.0
+    for i in range(0, n, 128):          # every row, 128 at a time
+        want = pplain(table, i)
+        _mla_check(errs, "paged_mla_prefill", got[:, i:i + 128], want,
+                   f"timing inputs, rows {i}-{i + 127}")
+        fault = max(fault, _mla_excess(pplain(shifted, i), want))
+    log(f"[timing] paged_mla_prefill planted fault, shifted table: departs "
+        f"{fault:.2f} times the limit")
+    if not fault > 1.0:
+        raise AssertionError(f"paged_mla_prefill: a shifted table departs "
+                             f"only {fault} times the limit")
+    pairs = n * start + n * (n + 1) // 2
+    bound, by = _bound(key_bytes * kv + q_bytes * n, pair_flops * pairs,
+                       BF16_FLOPS)
+    k_ms, d_ms = time_ms(prefill, 10), device_ms(prefill, "paged_mla", 10)
+    absorbed = 2 * MLA_H * (2 * MLA_R + MLA_DR) * pairs
+    log(f"[timing] paged_mla_prefill {n} rows at {start}: kernel {k_ms:.4f} "
+        f"ms (device {d_ms:.4f})  bound {bound:.4f} ms ({by}: "
+        f"{pair_flops * pairs / 1e12:.3f} TFLOP published)  bound/kernel "
+        f"device {bound / d_ms:.3f}; absorbed {absorbed / 1e12:.3f} TFLOP at "
+        f"{absorbed / d_ms / 1e9:.1f} TFLOP/s")
+
+
 def _wkv_bound(B, T, H, K, item):
     """r/k/v read once in the model type, w read and o written in f32, u
     read, the state read and written once in f32; about 5*K^2 flops per
@@ -4533,6 +4703,7 @@ def main() -> int:
     flash_row = phase_flash_timing(errs)
     wkv_row = phase_wkv_timing(errs)
     phase_flash_ssm_timing(errs)
+    phase_mla_timing(errs)
     log(f"[timing] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     phase_profile()

@@ -5,7 +5,9 @@ and the Hopper attention kernels, and returns wall-clock seconds.
 Two cache layouts, as in the reference:
 
 * **paged** (default) — a global pool of KV pages ``(L, P+1, page, Hkv,
-  D)`` driven by ``kvcache.pool.BlockPool`` block tables. The engine
+  D)`` (an MLA model's: one latent plane ``(L, P+1, page, R + Dr)``,
+  ``models.mla``; every page move loops over the pool's ``planes``) driven
+  by ``kvcache.pool.BlockPool`` block tables. The engine
   snapshots each batched session's lease into ``BatchWork.leases`` and this
   backend executes placement from those tables: prefill scatters chunk KV
   into leased pages and attends gather-free over the lease
@@ -56,6 +58,7 @@ from repro_torch.core.session import Session
 from repro_torch.engine.backend import BatchWork
 from repro_torch.kernels.paged_attention import paged_attention_fused
 from repro_torch.kernels.paged_flash_attention import paged_flash_attention
+from repro_torch.kernels.paged_mla import paged_mla_decode, paged_mla_prefill
 from repro_torch.kvcache.disk_tier import DiskFileStore
 from repro_torch.kvcache.pool import DeviceBindingMap
 from repro_torch.kvcache.swap_stream import SwapStream, TransferFuture
@@ -64,6 +67,7 @@ from repro_torch.models.transformer import (
     KVCache, PagedKVCache, init_lm, lm_decode, lm_decode_next_paged,
     lm_decode_paged, lm_mixed_paged, lm_pack_next_paged, lm_prefill_paged,
     lm_step, supports_paged)
+from repro_torch.models.mla import is_mla
 from repro_torch.obs import spans
 
 
@@ -100,6 +104,9 @@ class TorchBackend:
             raise ValueError(f"unknown layout {layout!r}")
         if layout == "paged" and not supports_paged(cfg):
             layout = "dense"          # window/softcap: no paged kernel
+        if layout == "dense" and is_mla(cfg):
+            raise ValueError("an MLA model is served from the latent page "
+                             "pool: layout='paged'")
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_len = max_len
@@ -306,6 +313,15 @@ class TorchBackend:
         return ids
 
 
+def _read(t: torch.Tensor, tally: Optional[torch.Tensor]):
+    """``t`` (int32) on the host, and ``tally`` (int64, on t's device; or
+    None) read in the same copy."""
+    if tally is None:
+        return t.cpu().numpy(), None
+    got = torch.cat((t.to(torch.int64), tally)).cpu().numpy()
+    return got[:t.numel()].astype(np.int32), got[t.numel():]
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """Host tensor -> numpy for the spool (bf16 travels as its int16 bits)."""
     if t.dtype == torch.bfloat16:
@@ -323,7 +339,8 @@ def _from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # the kernels whose ``.launches`` a replay adds to, as its capture counted
-_COUNTED = (paged_attention_fused, paged_flash_attention)
+_COUNTED = (paged_attention_fused, paged_flash_attention, paged_mla_decode,
+            paged_mla_prefill)
 EAGER, CAPTURED, REPLAYED = ("stages_eager", "stages_captured",
                              "stages_replayed")
 
@@ -341,7 +358,7 @@ def _graphable(cache: PagedKVCache, params) -> bool:
     weight CUDA tensors that are not DTensors (a mesh's collectives and
     the CPU's plain kernels run eagerly)."""
     return all(t.device.type == "cuda" and not isinstance(t, DTensor)
-               for t in (cache.k, cache.v, *_leaves(params)))
+               for t in (*cache.planes, *_leaves(params)))
 
 
 @contextlib.contextmanager
@@ -426,7 +443,7 @@ class _StepGraphs:
         self.device = device
         self.stages: Dict[tuple, _Stage] = {}
         self.counts = dict.fromkeys((EAGER, CAPTURED, REPLAYED), 0)
-        self._ptrs: Optional[Tuple[int, int]] = None
+        self._ptrs: Optional[Tuple[int, ...]] = None
         self._side = self._pool = None
         self.new_graph = new_graph or self._cuda_graph
 
@@ -437,7 +454,7 @@ class _StepGraphs:
         return _CudaGraph(self._pool, self._side)
 
     def follow(self, cache: PagedKVCache) -> None:
-        ptrs = (cache.k.data_ptr(), cache.v.data_ptr())
+        ptrs = tuple(t.data_ptr() for t in cache.planes)
         if ptrs != self._ptrs:
             self.stages.clear()
             self._ptrs = ptrs
@@ -497,9 +514,11 @@ class _PagedLayout:
         self.scratch = self.binding.scratch_page
         self.cache = PagedKVCache.zeros(backend.cfg, total_pages + 1, page,
                                         backend.dtype, self.dev)
-        # host copies of offloaded private blocks:
-        # sid -> (k (L, n, page, Hkv, D), v (...)) in swap-record order
-        self._host: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # host copies of offloaded private blocks, one per pool plane:
+        # sid -> (k (L, n, page, Hkv, D), v (...)) in swap-record order;
+        # (None,) * planes marks an offload with nothing private
+        self._host: Dict[int, Tuple[Optional[torch.Tensor], ...]] = {}
+        self._empty = (None,) * len(self.cache.planes)
         self.stream: Optional[SwapStream] = (SwapStream(n_buffers=2)
                                              if async_swap else None)
         # side CUDA streams for the host crossings (card only)
@@ -517,6 +536,12 @@ class _PagedLayout:
         self.graphs: Optional[_StepGraphs] = (
             _StepGraphs(self.dev) if _graphable(self.cache, backend.params)
             else None)
+        # the MoE layers' routed and kept entries of real rows (int64),
+        # summed on the device inside each stage; read and reset only
+        # while spans record
+        self.moe_tally: Optional[torch.Tensor] = (
+            torch.zeros(2, dtype=torch.int64, device=self.dev)
+            if backend.cfg.moe is not None else None)
 
     # --- device arrays and the compute calls ------------------------------
     def _t(self, a) -> torch.Tensor:
@@ -539,8 +564,8 @@ class _PagedLayout:
         return torch.argmax(logits[0, last_idx], dim=-1).to(torch.int32)
 
     def _copy_fn(self, src: int, dst: int) -> None:
-        self.cache.k[:, dst].copy_(self.cache.k[:, src])
-        self.cache.v[:, dst].copy_(self.cache.v[:, src])
+        for t in self.cache.planes:
+            t[:, dst].copy_(t[:, src])
 
     # --- binding / oracle -------------------------------------------------
     def bind_kv_pool(self, pool) -> None:
@@ -552,9 +577,9 @@ class _PagedLayout:
                              f"{self.total_pages} pages")
 
     def kv_bytes_per_token(self) -> float:
-        k = self.cache.k             # (L, P, page, Hkv, D)
-        per_tok = 2 * k.numel() // (k.shape[1] * k.shape[2]) * k.element_size()
-        return float(per_tok)
+        # each plane (L, P, page, ...): bytes/token = all but P and page
+        return float(sum(t.numel() // (t.shape[1] * t.shape[2])
+                         * t.element_size() for t in self.cache.planes))
 
     def calibrate(self) -> None:
         """Time one 64-token prefill chunk, one decode step and one page
@@ -603,13 +628,12 @@ class _PagedLayout:
             pf(), df()                   # the first sightings, eager
         b._prefill_s_per_tok = b._time_once(pf) / C
         b._decode_s_per_step = b._time_once(df)
-        page_bytes = 2 * self.cache.k[:, 0].numel() * \
-            self.cache.k.element_size()
+        page_bytes = sum(t[:, 0].numel() * t.element_size()
+                         for t in self.cache.planes)
 
         def xfer():
-            host = (self.cache.k[:, 0].cpu(), self.cache.v[:, 0].cpu())
-            host[0].to(self.dev)
-            host[1].to(self.dev)
+            for h in [t[:, 0].cpu() for t in self.cache.planes]:
+                h.to(self.dev)
             b._sync()
 
         # round trip moves page_bytes each way; swap_time charges one
@@ -689,7 +713,10 @@ class _PagedLayout:
                 host = self._host.get(sid)
             if host is None or host[0] is None:
                 return False           # nothing private: marker stays
-            store.write(sid, _to_numpy(host[0]), _to_numpy(host[1]))
+            arrays = [_to_numpy(t) for t in host]
+            # a latent pool has one plane: the spool's v holds nothing
+            store.write(sid, arrays[0],
+                        arrays[1] if len(arrays) > 1 else arrays[0][:0])
             with self._mu:
                 if self.stream is not None and sid in self._dropped:
                     store.delete(sid)  # raced a detach: no resurrection
@@ -713,7 +740,8 @@ class _PagedLayout:
             data = store.read(sid)
             if data is None:
                 return False           # empty record: marker never spilled
-            host = (_from_numpy(data[0], dtype), _from_numpy(data[1], dtype))
+            host = tuple(_from_numpy(a, dtype)
+                         for a in data[:len(self._empty)])
             with self._mu:
                 if self.stream is not None and sid in self._dropped:
                     store.delete(sid)
@@ -741,7 +769,7 @@ class _PagedLayout:
                 if private]
         if not pids:
             if self.stream is None:
-                self._host[sid] = (None, None)
+                self._host[sid] = self._empty
                 return None
 
             def mark_empty():
@@ -749,18 +777,17 @@ class _PagedLayout:
                 # from a dropped earlier offload must land first
                 with self._mu:
                     self._dropped.discard(sid)
-                    self._host[sid] = (None, None)
+                    self._host[sid] = self._empty
 
             return self.stream.submit(mark_empty, sid=sid, direction="d2h")
         # scratch-padded power-of-two gather width, as in the reference
         idx = self._t(self._swap_index(pids)).long()
         if self.stream is None:
-            self._host[sid] = (self.cache.k[:, idx].cpu(),
-                               self.cache.v[:, idx].cpu())
+            self._host[sid] = tuple(t[:, idx].cpu()
+                                    for t in self.cache.planes)
             return None
         slot = self.stream.staging.acquire()     # double-buffer backpressure
-        k_snap = self.cache.k[:, idx]            # device-side staging copy
-        v_snap = self.cache.v[:, idx]
+        snaps = [t[:, idx] for t in self.cache.planes]   # device-side copy
         ready = None
         if self._d2h_stream is not None:
             ready = torch.cuda.Event()
@@ -770,7 +797,7 @@ class _PagedLayout:
 
         def drain():
             try:
-                host = self._to_host(ready, k_snap, v_snap)
+                host = self._to_host(ready, *snaps)
                 with self._mu:
                     if sid not in self._dropped:
                         self._host[sid] = host
@@ -796,11 +823,11 @@ class _PagedLayout:
 
         def upload():
             try:
-                dk, dv, ev = self._to_device(host[0], host[1])
+                *dev, ev = self._to_device(*host)
                 with self._mu:
                     if sid not in self._dropped:
-                        self._prefetch[sid] = (dk, dv, ev)
-                return (dk, dv)
+                        self._prefetch[sid] = (dev, ev)
+                return tuple(dev)
             finally:
                 self.stream.staging.release(slot)
 
@@ -829,16 +856,16 @@ class _PagedLayout:
                                f"{host[0].shape[1]} copies")
         idx = self._t(self._swap_index(pids)).long()
         if pre is not None:
-            dk, dv, ev = pre
+            dev, ev = pre
             if ev is not None:
                 cur = torch.cuda.current_stream(self.dev)
                 cur.wait_event(ev)
-                dk.record_stream(cur)
-                dv.record_stream(cur)
+                for d in dev:
+                    d.record_stream(cur)
         else:
-            dk, dv = host[0].to(self.dev), host[1].to(self.dev)
-        self.cache.k[:, idx] = dk
-        self.cache.v[:, idx] = dv
+            dev = [h.to(self.dev) for h in host]
+        for t, d in zip(self.cache.planes, dev):
+            t[:, idx] = d
 
     def _swap_index(self, pids: List[int]) -> np.ndarray:
         """Swap gather/scatter page index, padded to a power-of-two width
@@ -938,8 +965,15 @@ class _PagedLayout:
         alone, or the graphs' input copies and replays), ``.readback``
         and ``.commit``, in that order; counters on ``run_mixed``: each
         stage (a pack, the decode lanes) as ``stages_eager``,
-        ``stages_captured`` or ``stages_replayed``."""
+        ``stages_captured`` or ``stages_replayed``, and for an MoE model
+        ``moe_entries_routed`` and ``moe_entries_kept``, the real rows'
+        entries over every MoE layer (``self.moe_tally``, summed on the
+        device, reset at the iteration's start and read with its last
+        token readback while spans record)."""
         with spans.span("run_mixed"):
+            tally = self.moe_tally if spans.recording() else None
+            if tally is not None:
+                tally.zero_()
             with spans.span("run_mixed.inputs"):
                 packs, decodes, C, Np, args = self._mixed_inputs(work)
             P, B = len(args[0]), len(args[7])       # p_toks, d_toks
@@ -951,7 +985,8 @@ class _PagedLayout:
             with spans.span("run_mixed.forward"):
                 if self.graphs is None:
                     p_next, d_next, self.cache = lm_mixed_paged(
-                        self.b.cfg, self.b.params, self.cache, *args)
+                        self.b.cfg, self.b.params, self.cache, *args,
+                        moe_tally=self.moe_tally)
                     stages = {EAGER: P + bool(B)}
                 else:
                     p_next, d_next, stages = self._graphed_step(args)
@@ -959,10 +994,13 @@ class _PagedLayout:
                 spans.count(name, n)
             with spans.span("run_mixed.readback"):
                 if packs:
-                    p_next = p_next.cpu().numpy()
+                    p_next, got = _read(p_next, None if decodes else tally)
                 if decodes:
-                    d_next = d_next.cpu().numpy()
+                    d_next, got = _read(d_next, tally)
                 spans.count("readbacks", bool(packs) + bool(decodes))
+            if tally is not None:
+                spans.count("moe_entries_routed", int(got[0]))
+                spans.count("moe_entries_kept", int(got[1]))
             with spans.span("run_mixed.commit"):
                 for j, (s, _seg, _start, _lease) in enumerate(packs):
                     s.meta["next_token"] = int(p_next[j])
@@ -1007,12 +1045,12 @@ class _PagedLayout:
     def _pack_next(self, *a) -> torch.Tensor:
         """The pack stage over ``a`` (``lm_pack_next_paged``'s arrays)."""
         return lm_pack_next_paged(self.b.cfg, self.b.params, self.cache,
-                                  *a)[0]
+                                  *a, moe_tally=self.moe_tally)[0]
 
     def _decode_next(self, *a) -> torch.Tensor:
         """The decode stage over ``a`` (``lm_decode_next_paged``'s)."""
         return lm_decode_next_paged(self.b.cfg, self.b.params, self.cache,
-                                    *a)[0]
+                                    *a, moe_tally=self.moe_tally)[0]
 
     def _mixed_inputs(self, work: BatchWork):
         """``run_mixed``'s packs ``(s, seg, start, lease)``, lanes

@@ -9,6 +9,9 @@ and no environment switch.
     prefill_attention(...) gather-free paged prefill (paged flash | plain)
     decode_attention(...)  paged decode attention (paged kernel | plain),
                            optionally with the KV write fused in
+    mla_prefill_attention(...), mla_decode_attention(...)
+                           absorbed MLA over a latent page pool
+                           (paged_mla kernels | plain)
     wkv(...)               the RWKV6 recurrence (wkv6 kernel | plain)
 """
 from __future__ import annotations
@@ -17,6 +20,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_fused)
 from repro_torch.kernels.paged_flash_attention import paged_flash_attention
+from repro_torch.kernels.paged_mla import paged_mla_decode, paged_mla_prefill
 from repro_torch.kernels.wkv6 import wkv6
 
 
@@ -58,3 +62,30 @@ def decode_attention(q, k_pages, v_pages, block_table, lengths, *,
                                      lengths, k_new, v_new, write_pages,
                                      write_offsets)
     return paged_attention(q, k_pages, v_pages, block_table, lengths)
+
+
+def mla_prefill_attention(q, latent_pages, block_table, kv_len, q_offset, *,
+                          scale: float, rank: int):
+    """Absorbed MLA chunked prefill over a latent page pool, read in place.
+
+    q: (B, Sq, H, R + Dr) ``[q_nope W_uk^T | q_pe]``; latent_pages: (P,
+    page, R + Dr), the chunk's own rows already written; block_table: (B,
+    Np); kv_len/q_offset: (B,) int32. Returns (B, Sq, H, R): the softmax-
+    weighted sums of the rows' first ``rank`` values.
+    """
+    return paged_mla_prefill(q, latent_pages, block_table, kv_len, q_offset,
+                             scale=scale, rank=rank)
+
+
+def mla_decode_attention(q, latent_pages, block_table, lengths, latent_new,
+                         write_pages, write_offsets, *, scale: float,
+                         rank: int):
+    """Absorbed MLA decode over a latent page pool with the new rows'
+    write fused in: q (B, H, R + Dr); latent_new (B, R + Dr) lands at
+    ``write_pages``/``write_offsets`` (B,) in place (slot contract:
+    position ``lengths - 1``; on the CPU: write, then attend). Returns
+    (B, H, R).
+    """
+    return paged_mla_decode(q, latent_pages, block_table, lengths,
+                            latent_new, write_pages, write_offsets,
+                            scale=scale, rank=rank)

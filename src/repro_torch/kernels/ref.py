@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the Hopper kernels (attention and WKV6).
+"""Plain PyTorch versions of the Hopper kernels (attention, MLA attention
+over a latent page pool, and WKV6).
 
 They mirror ``repro.kernels.ref`` op for op (f32 einsum, scale applied
 after the einsum, softcap before the mask, ``-1e30`` mask value, softmax;
@@ -8,7 +9,10 @@ tests compare them with the JAX oracles, and ``chip_smoke.py`` compares
 each kernel with them on the card. On a CPU tensor the kernel wrappers
 call these directly. ``wkv6_chunked`` is the JAX model's chunked form of
 the recurrence: the ``wkv6`` kernel's backward recomputes it, since the
-step-by-step ``wkv6_ref`` is too slow at training lengths.
+step-by-step ``wkv6_ref`` is too slow at training lengths. The MLA
+versions (``paged_mla_*_ref``, and ``mla_expanded_ref``, the published
+form they are held to) have no JAX counterpart: the CPU tests compare
+them with ``mars_bench/arch/mla.py``'s reference.
 """
 from __future__ import annotations
 
@@ -109,6 +113,86 @@ def paged_flash_attention_ref(q, k_pages, v_pages, block_table, kv_len,
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(F32))
     out = out.reshape(B, Sq, Hq, D).to(q.dtype)
     return out.transpose(1, 2)
+
+
+def _mla_gather(latent_pages, block_table):
+    """(B, Np * page, R + Dr) float32: each row's pages in token order."""
+    B, Np = block_table.shape
+    page = latent_pages.shape[1]
+    return latent_pages[block_table.long()].reshape(B, Np * page, -1).to(F32)
+
+
+def paged_mla_decode_ref(q, latent_pages, block_table, lengths, *, scale,
+                         rank: int, latent_new=None, write_pages=None,
+                         write_offsets=None):
+    """Absorbed MLA decode over a latent page pool (plain version of
+    ``paged_mla_decode``).
+
+    q: (B, H, R + Dr) absorbed queries ``[q_nope W_uk^T | q_pe]``;
+    latent_pages: (P, page, R + Dr) rows ``[c | k_pe]``; block_table:
+    (B, max_pages) int32; lengths: (B,) valid keys. Every head scores
+    every latent row over all R + Dr values and sums the rows' first
+    ``rank`` values. With ``latent_new`` (B, R + Dr) and ``write_pages``/
+    ``write_offsets`` (B,) the new rows are written first, in place.
+    Returns (B, H, R) in q's dtype.
+    """
+    if latent_new is not None:
+        latent_pages.index_put_((write_pages.long(), write_offsets.long()),
+                                latent_new)
+    kv = _mla_gather(latent_pages, block_table)             # (B, S, R+Dr)
+    s = torch.einsum("bhd,bsd->bhs", q.to(F32), kv) * scale
+    pos = torch.arange(kv.shape[1], device=q.device)
+    valid = pos[None] < lengths.to(q.device).long()[:, None]
+    s = torch.where(valid[:, None], s, torch.full_like(s, NEG_INF))
+    o = torch.einsum("bhs,bsr->bhr", torch.softmax(s, dim=-1),
+                     kv[..., :rank])
+    return o.to(q.dtype)
+
+
+def paged_mla_prefill_ref(q, latent_pages, block_table, kv_len, q_offset, *,
+                          scale, rank: int):
+    """Absorbed MLA chunked prefill over a latent page pool (plain version
+    of ``paged_mla_prefill``).
+
+    q: (B, Sq, H, R + Dr) absorbed queries; latent_pages, block_table as
+    ``paged_mla_decode_ref``'s; kv_len/q_offset: (B,) int32. Mask: ``kv_pos
+    <= q_offset + i`` and ``kv_pos < kv_len``. Returns (B, Sq, H, R).
+    """
+    B, Sq = q.shape[:2]
+    kv = _mla_gather(latent_pages, block_table)
+    s = torch.einsum("bqhd,bsd->bhqs", q.to(F32), kv) * scale
+    dev = q.device
+    q_pos = q_offset.to(dev).long()[:, None] + torch.arange(Sq, device=dev)
+    kv_pos = torch.arange(kv.shape[1], device=dev)
+    mask = (kv_pos[None, None] <= q_pos[:, :, None]) & \
+           (kv_pos[None, None] < kv_len.to(dev).long()[:, None, None])
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    o = torch.einsum("bhqs,bsr->bqhr", torch.softmax(s, dim=-1),
+                     kv[..., :rank])
+    return o.to(q.dtype)
+
+
+def mla_expanded_ref(q_nope, q_pe, rows, w_kv_b, mask, *, scale):
+    """MLA attention as published, the oracle of the absorbed form:
+    ``[k_nope | v] = c W_kv_b`` per head, scores ``q_nope . k_nope +
+    q_pe . k_pe``, values ``v``.
+
+    q_nope: (B, Sq, H, Dn); q_pe: (B, Sq, H, Dr); rows: (B, S, R + Dr)
+    latent rows ``[c | k_pe]``; w_kv_b: (R, H * (Dn + Dv)); mask: (B, Sq,
+    S) bool, True = attend. Returns (B, Sq, H, Dv) float32.
+    """
+    B, Sq, H, Dn = q_nope.shape
+    Dr = q_pe.shape[-1]
+    R = rows.shape[-1] - Dr
+    kv = (rows[..., :R].to(F32) @ w_kv_b.to(F32)).reshape(B, -1, H,
+                                                          w_kv_b.shape[1]
+                                                          // H)
+    s = (torch.einsum("bqhd,bshd->bhqs", q_nope.to(F32), kv[..., :Dn])
+         + torch.einsum("bqhd,bsd->bhqs", q_pe.to(F32),
+                        rows[..., R:].to(F32))) * scale
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    return torch.einsum("bhqs,bshd->bqhd", torch.softmax(s, dim=-1),
+                        kv[..., Dn:])
 
 
 def wkv6_ref(r, k, v, w, u, state):

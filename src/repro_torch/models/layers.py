@@ -839,6 +839,44 @@ def _route(moe, logits):
     return idx, w
 
 
+def _route_sigmoid(moe, mla, logits, bias):
+    """The ``noaux_tc`` router: logits (T, E), bias (E,) -> (topk_idx
+    (T, K) int64, topk_w (T, K)). Experts are chosen by sigmoid score plus
+    the correction bias and weighted by the score alone, renormalised
+    (``norm_topk_prob``) and scaled by ``routed_scaling_factor``."""
+    scores = torch.sigmoid(logits.to(F32))
+    _, idx = torch.topk(scores + bias.to(F32), moe.top_k, dim=-1,
+                        largest=True, sorted=True)
+    w = scores.gather(1, idx)
+    if mla.norm_topk_prob:
+        w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-20)
+    return idx, w * mla.routed_scaling_factor
+
+
+class MoETally:
+    """The routed and kept entries of one stage's real rows over its MoE
+    layers, summed on the device (no host sync, so it runs inside a CUDA
+    graph): each ``moe_ffn`` adds its rows' kept entries, ``close`` adds
+    (routed, kept) into ``out`` (2,) int64. ``real`` (T,) bool marks the
+    rows of real tokens (padded pack rows and idle lanes are not)."""
+
+    def __init__(self, out, real):
+        self.out, self.real = out, real
+        self.kept, self.routed = None, 0
+
+    def add(self, keep, top_k: int) -> None:
+        k = keep.view(self.real.shape[0], top_k).sum(1)
+        self.kept = k if self.kept is None else self.kept + k
+        self.routed += top_k
+
+    def close(self) -> None:
+        if self.kept is None:
+            return
+        r = self.real.to(torch.int64)
+        self.out.add_(torch.stack((r.sum() * self.routed,
+                                   (self.kept * r).sum())))
+
+
 def _dispatch(x, idx, w, num_experts: int, capacity: int,
               offsets=None):
     """Scatter tokens into per-expert capacity buffers.
@@ -899,10 +937,14 @@ def _capacity(m, tokens: int) -> int:
 
 
 def moe_ffn(cfg: ModelConfig, p: Params, x,
-            pctx: Optional[ParallelCtx] = None, token_shard: bool = False):
+            pctx: Optional[ParallelCtx] = None, token_shard: bool = False,
+            tally: Optional[MoETally] = None):
     """Single-device / TP-sharded MoE FFN. x: (B, S, D), every row of it
     routed, padded lanes included (they count towards the capacity, as in
-    JAX).
+    JAX). A config with ``mla`` routes by ``_route_sigmoid`` over
+    ``p["bias"]`` and adds the shared MLP ``p["shared"]``, which every row
+    runs and nothing drops; any other routes by the softmax ``_route``.
+    ``tally`` counts the call's routed and kept entries of real rows.
 
     Under ``pctx``'s mesh (DTensor inputs) the dispatch keeps the
     single-device semantics, one capacity over all B * S tokens: see
@@ -912,19 +954,28 @@ def moe_ffn(cfg: ModelConfig, p: Params, x,
     expert work instead of duplicating it."""
     if isinstance(x, DTensor):
         return _moe_ffn_sharded(cfg, p, x, pctx, token_shard)
-    m = cfg.moe
+    m, mla = cfg.moe, getattr(cfg, "mla", None)
     B, S, D = x.shape
     with spans.span("moe.route"):
         xt = x.reshape(B * S, D)
         logits = matmul_f32(xt, p["router"])
-        idx, w = _route(m, logits)
+        if mla is None:
+            idx, w = _route(m, logits)
+        else:
+            idx, w = _route_sigmoid(m, mla, logits, p["bias"])
         capacity = _capacity(m, B * S)
     with spans.span("moe.dispatch"):
         buf, meta = _dispatch(xt, idx, w, m.num_experts, capacity)
+        if tally is not None:
+            tally.add(meta[2], m.top_k)
     with spans.span("moe.experts"):
         out = _expert_ffn(cfg, p, buf)
     with spans.span("moe.combine"):
-        return _combine(out, meta, w, B * S).reshape(B, S, D)
+        out = _combine(out, meta, w, B * S).reshape(B, S, D)
+    if mla is None:
+        return out
+    with spans.span("moe.shared"):
+        return out + mlp(cfg, p["shared"], x)
 
 
 _MOE_WEIGHTS = ("router", "w_gate", "w_up", "w_down")
@@ -1007,12 +1058,21 @@ def _weight_placements(mesh, specs, partial_over):
     return pls, grads
 
 
+def _refuse_mla(cfg, where: str):
+    """The mesh paths route by the softmax and add no shared MLP: an MLA
+    config (sigmoid routing, shared experts) would run another model."""
+    if getattr(cfg, "mla", None) is not None:
+        raise NotImplementedError(f"{where}: an MLA config's sigmoid router "
+                                  "and shared experts run on one device only")
+
+
 def _moe_ffn_sharded(cfg, p, x, pctx: ParallelCtx, token_shard: bool):
     """``moe_ffn`` on DTensors: the expert weights (E, D, F) split over
     the model axis on F (or whole, with the moe_replicated toggle), the
     tokens over the data axes (and the model axis with ``token_shard``).
     One capacity over all B * S tokens, as the JAX package's global
-    dispatch under GSPMD has."""
+    dispatch under GSPMD has. An MLA config raises."""
+    _refuse_mla(cfg, "moe_ffn on a mesh")
     mesh = pctx.mesh
     m = cfg.moe
     B, S, D = x.shape
@@ -1050,7 +1110,9 @@ def moe_ffn_ep_local(cfg: ModelConfig, p: Params, x, *, mesh, ep_axis: str,
     result differs from ``moe_ffn``'s. The all-to-alls carry their
     gradients (``all_to_all_single_autograd``); the F-split products
     enter through ``_SumBackward`` and leave through ``_SumForward``.
+    An MLA config raises.
     """
+    _refuse_mla(cfg, "moe_ffn_ep_local")
     m = cfg.moe
     B, S, D = x.shape
     E = m.num_experts
@@ -1087,7 +1149,9 @@ def moe_ffn_ep(cfg: ModelConfig, p: Params, x, pctx: ParallelCtx):
     """Expert-parallel MoE on DTensors: ``moe_ffn_ep_local`` on each
     rank's shard inside ``local_map`` (the JAX package's ``shard_map``),
     with its in-specs: the router whole, the experts over ``ep_axis`` and
-    F over ``tp_axis``, the tokens over the data axes."""
+    F over ``tp_axis``, the tokens over the data axes. An MLA config
+    raises."""
+    _refuse_mla(cfg, "moe_ffn_ep")
     mesh = pctx.mesh
     ep, tp = pctx.ep_axis, pctx.tp_axis
     tp = tp if tp in mesh.mesh_dim_names else None

@@ -32,8 +32,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     F32, ParallelCtx, apply_norm, attention, attn_out, attn_qkv, constrain,
     dense_prefill_attention, dp_for, embed_lookup, matmul_f32, mlp, moe_ffn,
-    moe_ffn_ep, paged_decode_attention, paged_prefill_attention, paged_write,
-    replicated_like, write_kv)
+    moe_ffn_ep, MoETally, paged_decode_attention, paged_prefill_attention,
+    paged_write, replicated_like, write_kv)
+from repro_torch.models import mla
 from repro_torch.obs import spans
 
 class TensorSpec(NamedTuple):
@@ -105,13 +106,19 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     differently). Per-layer weights are stacked under ``"layers"`` with a
     leading ``n_layers`` axis; an ``moe`` layer carries ``"moe"`` (the
     router and the stacked experts of JAX's ``init_moe``) where a dense one
-    carries ``"mlp"``. ``generator`` must live on ``device``."""
+    carries ``"mlp"``. An MLA config's weights are ``mla.init_params``'s.
+    ``generator`` must live on ``device``."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} is not a transformer LM")
     D, L = cfg.d_model, (cfg.n_layers,)
 
     def nrm(shape, scale):
         return _normal(shape, scale, generator, dtype, device)
+
+    if mla.is_mla(cfg):
+        return mla.init_params(
+            cfg, nrm, lambda lead, dim: _norm_params(cfg, lead, dim, dtype,
+                                                     device), dtype, device)
 
     layers = {"ln_attn": _norm_params(cfg, L, D, dtype, device),
               "attn": _attn_params(cfg, L, nrm, dtype, device),
@@ -139,6 +146,14 @@ def layer_params(layers, l: int):
     if isinstance(layers, dict):
         return {k: layer_params(v, l) for k, v in layers.items()}
     return layers[l]
+
+
+def _layer(cfg: ModelConfig, params, l: int):
+    """Layer ``l``'s weights out of ``params`` (an MLA model stacks its
+    dense and MoE layers apart: ``mla.layer_params``)."""
+    if mla.is_mla(cfg):
+        return mla.layer_params(cfg, params, l)
+    return layer_params(params["layers"], l)
 
 
 def layer_kind_flags(cfg: ModelConfig) -> Tuple[bool, ...]:
@@ -179,26 +194,36 @@ def _unembed(cfg: ModelConfig, params, x):
     return logits
 
 
-def _moe_block(cfg: ModelConfig, lp, h, pctx: Optional[ParallelCtx]):
+def _moe_block(cfg: ModelConfig, lp, h, pctx: Optional[ParallelCtx],
+               tally: Optional[MoETally] = None):
     if pctx is not None and pctx.ep_axis is not None and pctx.mesh is not None:
         return moe_ffn_ep(cfg, lp["moe"], h, pctx)
     token_shard = "moe_replicated" in os.environ.get("REPRO_OPT", "")
-    return moe_ffn(cfg, lp["moe"], h, pctx, token_shard=token_shard)
+    return moe_ffn(cfg, lp["moe"], h, pctx, token_shard=token_shard,
+                   tally=tally)
 
 
-def _ffn_residual(cfg: ModelConfig, lp, x, o, pctx=None, pin: bool = False):
+def _ffn_residual(cfg: ModelConfig, lp, x, o, pctx=None, pin: bool = False,
+                  tally: Optional[MoETally] = None):
     """Residual add of the attention output, then the MLP (or MoE)
     sublayer. ``pin``: constrain the residual stream to the data axes
     after each add (the full-sequence layer's ``constrain`` calls)."""
-    o = attn_out(lp["attn"], o)
+    return _add_ffn(cfg, lp, x, attn_out(lp["attn"], o), pctx, pin, tally)
+
+
+def _add_ffn(cfg: ModelConfig, lp, x, o, pctx=None, pin: bool = False,
+             tally: Optional[MoETally] = None):
+    """``_ffn_residual`` of an attention output already projected (B, S,
+    D): an MLA block's. The layer's FFN is its ``"moe"`` or its
+    ``"mlp"``."""
     if cfg.post_sublayer_norm:
         o = apply_norm(cfg, lp["ln_post_attn"], o)
     x = x + o
     if pin:
         x = constrain(x, pctx, dp_for(pctx, x.shape[0]), None, None)
     h2 = apply_norm(cfg, lp["ln_mlp"], x)
-    if cfg.family == "moe":
-        f = _moe_block(cfg, lp, h2, pctx)
+    if "moe" in lp:
+        f = _moe_block(cfg, lp, h2, pctx, tally)
     else:
         f = mlp(cfg, lp["mlp"], h2, pctx)
     if cfg.post_sublayer_norm:
@@ -232,8 +257,15 @@ def _layer_full(cfg: ModelConfig, x, lp, is_local: bool, positions, pctx,
                 given: bool):
     """Full-sequence layer (train / prefill). Returns (x, (k, v)). Rows at
     ``0..S-1`` (``given`` False) attend through the flash kernel; rows at
-    ``given`` positions through the plain ``layers.attention``."""
+    ``given`` positions through the plain ``layers.attention``. An MLA
+    layer expands its keys and values (``mla.full_attention``) and returns
+    no KV."""
     h = apply_norm(cfg, lp["ln_attn"], x)
+    if mla.is_mla(cfg):
+        if given:
+            raise ValueError("MLA's full-sequence path runs rows at 0..S-1")
+        o = mla.full_attention(cfg, lp["attn"], h, positions)
+        return _add_ffn(cfg, lp, x, o, pctx, pin=True), (None, None)
     q, k, v = attn_qkv(cfg, lp["attn"], h, positions)
     if given:
         o = attention(q, k, v, positions, positions, causal=True,
@@ -264,7 +296,10 @@ def lm_forward(cfg: ModelConfig, params, tokens, *,
     in the backward (``torch.utils.checkpoint``, non-reentrant: the
     counterpart of ``jax.checkpoint(policy=nothing_saveable)``),
     ``return_hidden`` returns the final-norm hidden states (B, S_total, D)
-    instead of the logits."""
+    instead of the logits. An MLA model returns no cache: it is served
+    from the latent page pool."""
+    if return_cache and mla.is_mla(cfg):
+        raise ValueError("an MLA model's cache is the latent page pool")
     x = _embed(cfg, params, tokens, embeds)
     B, S, _ = x.shape
     given = positions is not None
@@ -274,7 +309,7 @@ def lm_forward(cfg: ModelConfig, params, tokens, *,
     x = constrain(x, pctx, dp_for(pctx, B), None, None)
     ks, vs = [], []
     for l, is_local in enumerate(layer_kind_flags(cfg)):
-        lp = layer_params(params["layers"], l)
+        lp = _layer(cfg, params, l)
         if remat:
             x, (k, v) = checkpoint(_layer_full, cfg, x, lp, is_local,
                                    positions, pctx, given,
@@ -329,6 +364,8 @@ def lm_step(cfg: ModelConfig, params, cache: KVCache, tokens,
 
     ``return_hidden`` returns the final-norm hidden states (B, C, D) in
     place of the logits."""
+    if mla.is_mla(cfg):
+        raise ValueError("an MLA model is served from the latent page pool")
     B, C = tokens.shape
     Smax = cache.k.shape[2]
     if q_offset is None:
@@ -478,8 +515,9 @@ def lm_decode_windowed(cfg: ModelConfig, params, cache: WindowedKVCache,
 # ---------------------------------------------------------------------------
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The paged path covers plain causal GQA; sliding-window alternation
-    and logit softcaps (gemma2) stay on the dense layout."""
+    """The paged path covers plain causal GQA and MLA (``models.mla``);
+    sliding-window alternation and logit softcaps (gemma2) stay on the
+    dense layout."""
     return (cfg.family in ("dense", "moe") and cfg.sliding_window is None
             and cfg.attn_logit_softcap is None)
 
@@ -487,9 +525,15 @@ def supports_paged(cfg: ModelConfig) -> bool:
 @dataclasses.dataclass
 class PagedKVCache:
     """Paged per-layer KV pool: k/v (L, P+1, page, Hkv, Dh), updated in
-    place by the ``lm_*_paged`` functions."""
+    place by the ``lm_*_paged`` functions. ``planes`` is ``(k, v)``; an
+    MLA model's pool is ``mla.LatentPagedKVCache``, whose ``planes`` is
+    ``(latent,)``: code that moves pages loops over the planes."""
     k: torch.Tensor
     v: torch.Tensor
+
+    @property
+    def planes(self):
+        return (self.k, self.v)
 
     @property
     def page_size(self) -> int:
@@ -502,14 +546,28 @@ class PagedKVCache:
     @classmethod
     def zeros(cls, cfg: ModelConfig, n_pages: int, page: int,
               dtype=torch.bfloat16, device="cpu"):
+        """The pool of ``cfg``: K and V planes, or for an MLA config a
+        ``LatentPagedKVCache``."""
+        if mla.is_mla(cfg):
+            return mla.LatentPagedKVCache.zeros(cfg, n_pages, page, dtype,
+                                                device)
         shp = (cfg.n_layers, n_pages, page, cfg.n_kv_heads, cfg.head_dim_)
         return cls(torch.zeros(shp, dtype=dtype, device=device),
                    torch.zeros(shp, dtype=dtype, device=device))
 
 
+def _tally(cfg: ModelConfig, cache, write_pages, moe_tally):
+    """The stage's ``MoETally`` into ``moe_tally`` (None: no count): real
+    rows are those whose KV lands off the scratch page (``n_pages - 1``)."""
+    if moe_tally is None or cfg.moe is None:
+        return None
+    return MoETally(moe_tally, write_pages != cache.n_pages - 1)
+
+
 def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
                     positions, block_tables, lengths, write_pages,
-                    write_offsets, *, pctx: Optional[ParallelCtx] = None):
+                    write_offsets, *, pctx: Optional[ParallelCtx] = None,
+                    moe_tally: Optional[torch.Tensor] = None):
     """One decode step against the global page pool.
 
     tokens/positions: (B,) int32 (absolute positions for RoPE);
@@ -518,7 +576,9 @@ def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     write_pages/write_offsets: (B,) the page/slot each lane's new KV lands
     in (idle lanes point at the scratch page). The slot must be the table
     position of sequence index ``lengths - 1``. The write happens inside
-    the fused decode kernel, in place.
+    the fused decode kernel, in place (an MLA model's: its latent row,
+    ``mla.decode_attention``). ``moe_tally`` (2,) int64: the real lanes'
+    routed and kept MoE entries are added to it on the device.
     Returns (logits (B, V) float32, cache).
     """
     if not supports_paged(cfg):
@@ -526,18 +586,29 @@ def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     x = _embed(cfg, params, tokens[:, None])          # (B, 1, D)
     x = constrain(x, pctx, dp_for(pctx, tokens.shape[0]), None, None)
     q_pos = positions[:, None]
+    tally = _tally(cfg, cache, write_pages, moe_tally)
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
+        lp = _layer(cfg, params, l)
         with spans.span("layer.attn"):
             h = apply_norm(cfg, lp["ln_attn"], x)
-            q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
-            o, _, _ = paged_decode_attention(
-                q[:, 0].contiguous(), cache.k[l], cache.v[l], block_tables,
-                lengths, k_new=k_new[:, 0].contiguous(),
-                v_new=v_new[:, 0].contiguous(), write_pages=write_pages,
-                write_offsets=write_offsets, pctx=pctx)
+            if mla.is_mla(cfg):
+                o = mla.decode_attention(
+                    cfg, lp["attn"], h, q_pos, cache.latent[l], block_tables,
+                    lengths, write_pages, write_offsets)
+            else:
+                q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
+                o, _, _ = paged_decode_attention(
+                    q[:, 0].contiguous(), cache.k[l], cache.v[l],
+                    block_tables, lengths, k_new=k_new[:, 0].contiguous(),
+                    v_new=v_new[:, 0].contiguous(), write_pages=write_pages,
+                    write_offsets=write_offsets, pctx=pctx)
         with spans.span("layer.ffn"):
-            x = _ffn_residual(cfg, lp, x, o[:, None], pctx)
+            if mla.is_mla(cfg):
+                x = _add_ffn(cfg, lp, x, o, pctx, tally=tally)
+            else:
+                x = _ffn_residual(cfg, lp, x, o[:, None], pctx, tally=tally)
+    if tally is not None:
+        tally.close()
     x = apply_norm(cfg, params["ln_final"], x)
     return _unembed(cfg, params, x[:, 0]), cache
 
@@ -545,7 +616,8 @@ def lm_decode_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
 def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
                      positions, table, write_pages, write_offsets, kv_len,
                      *, pctx: Optional[ParallelCtx] = None,
-                     return_hidden: bool = False):
+                     return_hidden: bool = False,
+                     moe_tally: Optional[torch.Tensor] = None):
     """Chunked prefill of ONE sequence against the page pool, gather-free.
 
     tokens/positions: (1, C) absolute positions; padded lanes sit at
@@ -558,9 +630,11 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
 
     Per layer the chunk's KV is scattered into its leased pages first (in
     place), then ``paged_prefill_attention`` reads every page in place
-    through the table. Returns (logits (1, C, V) float32, cache), or with
-    ``return_hidden`` the final-norm hidden states (1, C, D) in place of
-    the logits.
+    through the table (an MLA model: its latent rows and
+    ``mla.prefill_attention``). Returns (logits (1, C, V) float32, cache),
+    or with ``return_hidden`` the final-norm hidden states (1, C, D) in
+    place of the logits. ``moe_tally``: as ``lm_decode_paged``'s, over
+    the chunk's real rows.
     """
     if not supports_paged(cfg):
         raise ValueError("paged prefill: unsupported attention variant")
@@ -571,19 +645,30 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
     kv_len_b = replicated_like(x, torch.as_tensor(
         kv_len, dtype=torch.int32, device=x.device)).reshape(1)
     table_b = table.to(torch.int32).reshape(1, -1).contiguous()
+    tally = _tally(cfg, cache, write_pages, moe_tally)
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
+        lp = _layer(cfg, params, l)
         with spans.span("layer.attn"):
             h = apply_norm(cfg, lp["ln_attn"], x)
-            q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
-            k_l = paged_write(cache.k[l], write_pages, write_offsets,
-                              k_new[0])
-            v_l = paged_write(cache.v[l], write_pages, write_offsets,
-                              v_new[0])
-            o = paged_prefill_attention(q, k_l, v_l, table_b, kv_len_b,
-                                        q_offset, pctx)
+            if mla.is_mla(cfg):
+                o = mla.prefill_attention(
+                    cfg, lp["attn"], h, q_pos, cache.latent[l], write_pages,
+                    write_offsets, table_b, kv_len_b, q_offset)
+            else:
+                q, k_new, v_new = attn_qkv(cfg, lp["attn"], h, q_pos)
+                k_l = paged_write(cache.k[l], write_pages, write_offsets,
+                                  k_new[0])
+                v_l = paged_write(cache.v[l], write_pages, write_offsets,
+                                  v_new[0])
+                o = paged_prefill_attention(q, k_l, v_l, table_b, kv_len_b,
+                                            q_offset, pctx)
         with spans.span("layer.ffn"):
-            x = _ffn_residual(cfg, lp, x, o, pctx)
+            if mla.is_mla(cfg):
+                x = _add_ffn(cfg, lp, x, o, pctx, tally=tally)
+            else:
+                x = _ffn_residual(cfg, lp, x, o, pctx, tally=tally)
+    if tally is not None:
+        tally.close()
     x = apply_norm(cfg, params["ln_final"], x)
     if return_hidden:
         return x, cache
@@ -593,7 +678,8 @@ def lm_prefill_paged(cfg: ModelConfig, params, cache: PagedKVCache, tokens,
 def lm_pack_next_paged(cfg: ModelConfig, params, cache: PagedKVCache,
                        tokens, positions, table, write_pages, write_offsets,
                        kv_len, last_idx, *,
-                       pctx: Optional[ParallelCtx] = None):
+                       pctx: Optional[ParallelCtx] = None,
+                       moe_tally: Optional[torch.Tensor] = None):
     """The pack stage of ``lm_mixed_paged``: one pack's
     ``lm_prefill_paged`` (the arguments as there), the unembed of its last
     real token ``last_idx`` ((1,) int32) and the argmax. Returns
@@ -602,7 +688,8 @@ def lm_pack_next_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     with spans.span("step.pack"):
         hidden, cache = lm_prefill_paged(
             cfg, params, cache, tokens, positions, table, write_pages,
-            write_offsets, kv_len, pctx=pctx, return_hidden=True)
+            write_offsets, kv_len, pctx=pctx, return_hidden=True,
+            moe_tally=moe_tally)
         # logits at the pack's last token only (a whole chunk's would be
         # C x V floats). A one-element index tensor, not a 0-d one:
         # indexing with a 0-d CUDA tensor reads it back to the host (a
@@ -614,14 +701,15 @@ def lm_pack_next_paged(cfg: ModelConfig, params, cache: PagedKVCache,
 def lm_decode_next_paged(cfg: ModelConfig, params, cache: PagedKVCache,
                          tokens, positions, block_tables, lengths,
                          write_pages, write_offsets, *,
-                         pctx: Optional[ParallelCtx] = None):
+                         pctx: Optional[ParallelCtx] = None,
+                         moe_tally: Optional[torch.Tensor] = None):
     """The decode stage of ``lm_mixed_paged``: ``lm_decode_paged`` (the
     arguments as there) and the argmax. Returns (next (B,) int32, cache)."""
     with spans.span("step.decode"):
         logits, cache = lm_decode_paged(cfg, params, cache, tokens,
                                         positions, block_tables, lengths,
                                         write_pages, write_offsets,
-                                        pctx=pctx)
+                                        pctx=pctx, moe_tally=moe_tally)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
@@ -630,7 +718,8 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
                    p_write_offsets, p_kv_lens, p_last_idx,
                    d_tokens, d_positions, d_tables, d_lengths,
                    d_write_pages, d_write_offsets, *,
-                   pctx: Optional[ParallelCtx] = None):
+                   pctx: Optional[ParallelCtx] = None,
+                   moe_tally: Optional[torch.Tensor] = None):
     """ONE mixed continuous-batching iteration against the page pool:
     ``P`` chunked-prefill packs (in order, each updating the pool in place)
     followed by ``B`` one-token decode lanes.
@@ -649,24 +738,26 @@ def lm_mixed_paged(cfg: ModelConfig, params, cache: PagedKVCache,
     (which ``engine.torch_runner`` replays from CUDA graphs on the card).
     The pack-then-decode order is safe by the pool's write exclusivity: a
     pack writes KV only into its session's exclusively owned pages.
+    ``moe_tally``: each stage's real rows' routed and kept MoE entries
+    are added to it (``lm_decode_paged``).
     Returns (p_next (P,) int32, d_next (B,) int32, cache).
     """
     if not supports_paged(cfg):
         raise ValueError("mixed paged: unsupported attention variant")
-    dev = cache.k.device
+    dev = cache.planes[0].device
     nxt = []
     for j in range(p_tokens.shape[0]):
         n, cache = lm_pack_next_paged(
             cfg, params, cache, p_tokens[j], p_positions[j], p_tables[j],
             p_write_pages[j], p_write_offsets[j], p_kv_lens[j],
-            p_last_idx[j:j + 1], pctx=pctx)
+            p_last_idx[j:j + 1], pctx=pctx, moe_tally=moe_tally)
         nxt.append(n)
     p_next = (torch.cat(nxt) if nxt
               else torch.zeros((0,), dtype=torch.int32, device=dev))
     if d_tokens.shape[0] > 0:
         d_next, cache = lm_decode_next_paged(
             cfg, params, cache, d_tokens, d_positions, d_tables, d_lengths,
-            d_write_pages, d_write_offsets, pctx=pctx)
+            d_write_pages, d_write_offsets, pctx=pctx, moe_tally=moe_tally)
     else:
         d_next = torch.zeros((0,), dtype=torch.int32, device=dev)
     return p_next, d_next, cache
@@ -689,9 +780,9 @@ def lm_prefill_paged_gather(cfg: ModelConfig, params, cache: PagedKVCache,
     row's KV is read back from the dense view at its own position (JAX
     slices C rows from the start; the two agree wherever the chunk fits
     the view). Returns (logits (1, C, V) float32, cache), the pool updated
-    in place.
+    in place. GQA only.
     """
-    if not supports_paged(cfg):
+    if not supports_paged(cfg) or mla.is_mla(cfg):
         raise ValueError("paged prefill: unsupported attention variant")
     L, _, page, Hkv, D = cache.k.shape
     tbl = table.long()

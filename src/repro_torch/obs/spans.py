@@ -15,7 +15,9 @@ the port wrote for itself, at each boundary of one serving iteration::
           step.pack, step.decode      models.transformer.lm_*_next_paged
                                       (none for a replayed stage)
             layer.attn, layer.ffn     lm_prefill_paged / lm_decode_paged
-              moe.route, moe.dispatch, moe.experts, moe.combine
+              mla.q, mla.latent, mla.attn, mla.out   (an MLA layer's attn)
+              moe.route, moe.dispatch, moe.experts, moe.combine,
+              moe.shared                             (shared experts)
         run_mixed.readback            the tokens' .cpu() reads
         run_mixed.commit              the token bookkeeping
       prefill, decode               (the round path, instead of run_mixed)
@@ -197,6 +199,11 @@ def root(name: str, t_ns: int):
         return NOOP
     _on = True
     return _Handle(i, True)
+
+
+def recording() -> bool:
+    """Whether spans and counters are recorded now."""
+    return _on
 
 
 def count(name: str, n: int = 1) -> None:

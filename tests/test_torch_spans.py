@@ -177,11 +177,18 @@ def test_counters_equal_the_batch(arch):
     b.run_batch(_batch(), 0.0)
     sp, _ = spans.drain()
     rm = next(s for s in sp if s.name == "run_mixed")
+    counts = dict(rm.counts)
+    if b.cfg.moe is not None:
+        # every real row's routed entries (the packs' 210 tokens and the 2
+        # lanes) over every MoE layer, and those the dispatch kept
+        routed = (210 + 2) * b.cfg.moe.top_k * b.cfg.n_layers
+        assert counts.pop("moe_entries_routed") == routed
+        assert 0 < counts.pop("moe_entries_kept") <= routed
     # the four packs and the decode lanes, each a stage run eagerly
-    assert rm.counts == {"pack_tokens_real": 210,
-                         "pack_tokens_computed": 4 * 128,
-                         "lanes_real": 2, "lanes_computed": 2,
-                         "stages_eager": 5}
+    assert counts == {"pack_tokens_real": 210,
+                      "pack_tokens_computed": 4 * 128,
+                      "lanes_real": 2, "lanes_computed": 2,
+                      "stages_eager": 5}
     rb = next(s for s in sp if s.name == "run_mixed.readback")
     assert rb.counts == {"readbacks": 2}
     # each pack's session draws its 200-token round 0, position by position

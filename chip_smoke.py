@@ -223,12 +223,13 @@ families add, in run order:
   logged apart from the kernels JSON;
 - timing: the MLA kernels (paged_mla, CUDA) at kanana-2-30b-a3b's
   widths: decode over 32 lanes of 20,000-32,000 latent rows (cold L2) and
-  one lane of 32,768, a 2,048-row prefill pack at 26,000; each against
-  its plain version (every row, element by element within MLA_ATOL +
-  MLA_RTOL x the value, at most BF16_TOL; a shifted block table and, in
-  decode, a skipped
-  split must depart by more than that) and the
-  published attention's bound, logged apart from the kernels JSON;
+  one lane of 32,768, prefill packs of 2,048 and 256 tokens at 26,000
+  (the absorbed TFLOP/s beside the device ms; the prefill kernel's
+  registers, spills and shared memory); each against its plain version
+  (every row, element by element within MLA_ATOL + MLA_RTOL x the value,
+  at most BF16_TOL; a shifted block table and, in decode, a skipped
+  split must depart by more than that) and the published attention's
+  bound, logged apart from the kernels JSON;
 - serve-zamba, profile-zamba, serve-whisper (after profile-rwkv):
   zamba2-1.2b at full width in bf16 (8 prompts of 1,024 in one prefill,
   flash_attention exactly 6 times, the cache padded to 1,056, 16 greedy
@@ -3503,6 +3504,7 @@ def phase_flash_ssm_timing(errs: Errors) -> None:
 MLA_H, MLA_R, MLA_DR, MLA_PAGE = 32, 512, 64, 32
 MLA_DECODE = dict(lanes=32, lo=20000, hi=32000)
 MLA_PREFILL = dict(start=26000, n=2048)
+MLA_PREFILL_SMALL = dict(start=26000, n=256)   # a small pack: logged only
 MLA_SCALE = 192 ** -0.5
 MLA_RTOL, MLA_ATOL = 2 ** -5, 1e-3   # tests/test_torch_mla.py's KERNEL_*
 
@@ -3530,10 +3532,12 @@ def _mla_pool(gen, pages):
                         device=DEV) * 0.5).to(torch.bfloat16)
 
 
-def phase_mla_timing(errs: Errors) -> None:
+def phase_mla_timing(errs: Errors, build_logs: dict) -> None:
     """``paged_mla_decode`` (32 lanes of 20,000-32,000 keys, cold L2: each
     call on the next of ROTATION tables over disjoint pages; then one lane
-    of 32,768) and ``paged_mla_prefill`` (a 2,048-token pack at 26,000):
+    of 32,768) and ``paged_mla_prefill`` (a 2,048-token pack at 26,000,
+    then a 256-token one; with the prefill kernel's registers, spills and
+    shared memory, from ``build_logs``, this run's ``_build.build_all()``):
     CUDA-event and profiler device times against the plain versions and
     the bound of the published attention (``2 H (192 + 128)`` operations a
     query-key pair, 1,152 B a key; the absorbed kernels do 3.4 times those
@@ -3617,7 +3621,26 @@ def phase_mla_timing(errs: Errors) -> None:
         f"{d_ms:.4f} ms  bound {bound:.4f} ms ({by})  bound/kernel device "
         f"{bound / d_ms:.3f}")
 
-    start, n = MLA_PREFILL["start"], MLA_PREFILL["n"]
+    for line in _ptxas_lines(build_logs, "paged_mla",
+                             "paged_mla_prefill_kernel"):
+        log(f"[timing] paged_mla_prefill_kernel: {line}")
+    log(f"[timing] paged_mla_prefill_kernel: "
+        f"{paged_mla._lib().paged_mla_prefill_smem()} bytes of dynamic shared "
+        f"memory a block; setmaxnreg gives a consumer thread 232 registers, "
+        f"a producer's 40")
+    for pack in (MLA_PREFILL, MLA_PREFILL_SMALL):
+        _mla_prefill_timing(errs, gen, pack, fault=pack is MLA_PREFILL)
+
+
+def _mla_prefill_timing(errs, gen, pack, fault):
+    """One pack of ``pack["n"]`` tokens at ``pack["start"]``: every row
+    against the plain version, 128 at a time (with a shifted table's
+    departure where ``fault``), then CUDA-event and device ms, the bound of
+    the published attention and the absorbed work's TFLOP/s."""
+    W = MLA_R + MLA_DR
+    pair_flops, key_bytes = 2 * MLA_H * (192 + 128), W * 2
+    q_bytes = MLA_H * (192 + 128) * 2
+    start, n = pack["start"], pack["n"]
     kv = start + n
     Np = -(-kv // MLA_PAGE) + 1
     ppool = _mla_pool(gen, Np)
@@ -3637,27 +3660,32 @@ def phase_mla_timing(errs: Errors) -> None:
                                          rank=MLA_R)
     got = prefill()
     shifted = torch.where(table < Np - 1, table + 1, 0).int()
-    fault = 0.0
+    worst = departs = 0.0
     for i in range(0, n, 128):          # every row, 128 at a time
         want = pplain(table, i)
-        _mla_check(errs, "paged_mla_prefill", got[:, i:i + 128], want,
-                   f"timing inputs, rows {i}-{i + 127}")
-        fault = max(fault, _mla_excess(pplain(shifted, i), want))
-    log(f"[timing] paged_mla_prefill planted fault, shifted table: departs "
-        f"{fault:.2f} times the limit")
-    if not fault > 1.0:
-        raise AssertionError(f"paged_mla_prefill: a shifted table departs "
-                             f"only {fault} times the limit")
+        worst = max(worst, _mla_check(errs, "paged_mla_prefill",
+                                      got[:, i:i + 128], want,
+                                      f"timing inputs, rows {i}-{i + 127}"))
+        if fault:
+            departs = max(departs, _mla_excess(pplain(shifted, i), want))
+    log(f"[timing] paged_mla_prefill {n} rows at {start}: largest gap "
+        f"{worst:.3f} times the limit")
+    if fault:
+        log(f"[timing] paged_mla_prefill planted fault, shifted table: "
+            f"departs {departs:.2f} times the limit")
+        if not departs > 1.0:
+            raise AssertionError(f"paged_mla_prefill: a shifted table "
+                                 f"departs only {departs} times the limit")
     pairs = n * start + n * (n + 1) // 2
     bound, by = _bound(key_bytes * kv + q_bytes * n, pair_flops * pairs,
                        BF16_FLOPS)
     k_ms, d_ms = time_ms(prefill, 10), device_ms(prefill, "paged_mla", 10)
     absorbed = 2 * MLA_H * (2 * MLA_R + MLA_DR) * pairs
     log(f"[timing] paged_mla_prefill {n} rows at {start}: kernel {k_ms:.4f} "
-        f"ms (device {d_ms:.4f})  bound {bound:.4f} ms ({by}: "
-        f"{pair_flops * pairs / 1e12:.3f} TFLOP published)  bound/kernel "
-        f"device {bound / d_ms:.3f}; absorbed {absorbed / 1e12:.3f} TFLOP at "
-        f"{absorbed / d_ms / 1e9:.1f} TFLOP/s")
+        f"ms (device {d_ms:.4f} ms, {absorbed / d_ms / 1e9:.1f} TFLOP/s of "
+        f"absorbed work, {absorbed / 1e12:.3f} TFLOP)  bound {bound:.4f} ms "
+        f"({by}: {pair_flops * pairs / 1e12:.3f} TFLOP published)  "
+        f"bound/kernel device {bound / d_ms:.3f}")
 
 
 def _wkv_bound(B, T, H, K, item):
@@ -4619,6 +4647,19 @@ def phase_sharded() -> dict:
     return launches
 
 
+def _ptxas_lines(logs: dict, src: str, kernel: str) -> list:
+    """ptxas's register and spill lines for the kernels of ``src`` whose
+    name holds ``kernel``, from ``logs`` (``_build.build_all()``'s); a line
+    saying so when the library was built before the run."""
+    out, name = [], "?"
+    for line in logs.get(src, "").splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif kernel in name and ("registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out or [f"{src}.cu was built before this run: no ptxas log"]
+
+
 def _kernel_name(mangled: str) -> str:
     """``flash_kernel_mma<128, 1>`` from nvcc's mangled name of a kernel
     in an anonymous namespace (its template's float, bf16, integer and
@@ -4627,6 +4668,8 @@ def _kernel_name(mangled: str) -> str:
     if not m:
         return mangled
     end = m.end() + int(m.group(1))
+    if not mangled[end:].startswith("I"):    # no template
+        return mangled[m.end():end]
     tpl = mangled[end:].split("EEv")[0]
     args = [a.group(1) or ("bf16" if "bfloat" in a.group(0) else "float")
             for a in re.finditer(r"L[ib](\d+)E|13__nv_bfloat16|(?<=I)f",
@@ -4703,7 +4746,7 @@ def main() -> int:
     flash_row = phase_flash_timing(errs)
     wkv_row = phase_wkv_timing(errs)
     phase_flash_ssm_timing(errs)
-    phase_mla_timing(errs)
+    phase_mla_timing(errs, logs)
     log(f"[timing] done in {time.monotonic() - t0:.2f}s")
     t0 = time.monotonic()
     phase_profile()

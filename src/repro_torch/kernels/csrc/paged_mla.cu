@@ -8,13 +8,14 @@
 // Both run the absorbed form. A query row is q~ = [q_nope W_uk^T | q_pe]
 // (576 wide, made by the caller); it scores each latent row over all 576
 // values, and the output is the softmax-weighted sum of the rows' first
-// R = 512 values (the caller lifts it by W_uv). Each latent row is read
-// from its page in place through the block table, one 16-byte cp.async a
-// chunk, so any page size works and a tile may span pages.
+// R = 512 values (the caller lifts it by W_uv). Latent rows are read from
+// their pages in place through the block table.
 //
-// The core is attn_mma.cuh's FlashAttention-2 design on the warp-level
-// tensor cores (mma.sync m16n8k16 bf16 -> f32, ldmatrix fragments, P
-// reused from registers as the A operand of P.V), widened to MLA's rows:
+// The decode core (walk) is attn_mma.cuh's FlashAttention-2 design on the
+// warp-level tensor cores (mma.sync m16n8k16 bf16 -> f32, ldmatrix
+// fragments, P reused from registers as the A operand of P.V), widened to
+// MLA's rows; each latent row is read one 16-byte cp.async a chunk, so any
+// page size works and a tile may span pages:
 //
 // - A block holds kRows = 16 * RG query rows and has RG * CG warps: warp
 //   (rg, cg) owns rows [16 rg, 16 rg + 16) and output columns
@@ -34,7 +35,8 @@
 //   Shared rows are padded by 8 elements, so each ldmatrix phase's 8 rows
 //   fall in distinct banks (1,168-byte rows: 4 words of offset a row). A
 //   key's page is found with a shift and a mask when the page size is a
-//   power of two, else with a division (16 % slower prefill at page 32).
+//   power of two, else with a division (16 % slower at page 32 when walk
+//   also ran the prefill).
 // - Scores are scaled by scale * log2(e) in one FFMA and exponentiated
 //   with exp2f; the accumulator is rescaled once a tile, and not at all
 //   when no row max of the warp moved. Only edge tiles mask per element.
@@ -56,28 +58,63 @@
 // takes that row from latent_new, never from the pool, so no block reads
 // a slot another is writing.
 //
-// Prefill (paged_mla_prefill_kernel): a block's rows are (token, head)
-// pairs, token-major, 64 of them (RG = 4, CG = 2: 8 warps, 128 accumulator
-// registers; Q is read from shared memory each tile), so the heads of the
-// same tokens share each tile; 255 registers a thread, one block an SM.
-// (16 warps of 128 columns, 16- and 48-key tiles, and 32-row blocks with Q
-// held in registers were each 2-46 % slower on one H100.) It reaches about
-// 170 TFLOP/s of absorbed work: the partial-score exchange and ldmatrix
-// traffic (about 11 operations a shared-memory byte) keep it well under
-// the tensor cores' rate. Causal by absolute position (kv_pos <=
+// Prefill (paged_mla_prefill_kernel) runs on the warpgroup path instead
+// (sm90.cuh; FlashMLA's Hopper design applied to prefill rows). A block's
+// 64 rows are (token, head) pairs, token-major, so the heads of the same
+// tokens share each latent tile; causal by absolute position (kv_pos <=
 // q_offset + token, kv_pos < kv_len), stopping at the last key a row of
-// the block can see. The absorbed form does 69,632 operations a query-key
-// pair against the published 2 H (Dn + Dr + Dv) = 20,480, 3.4 times the
-// count; expanding k_nope and v tile by tile would cost each block
-// 2 R H (Dn + Dv) operations a key, more again at any block a register
-// file holds. At pack sizes it is bound by the tensor cores.
+// the block can see. 384 threads: two consumer warpgroups (232 registers
+// a thread after setmaxnreg) and a producer warp (40).
+//
+// - Loads: the producer puts Q (64 x 576, 72 KB) into shared memory once,
+//   then each 32-key tile into a ring of 4 stages, by TMA: one box of 64
+//   columns by one page's rows of the tile (page 32: 9 boxes a tile), each
+//   page found in the block table, 128-byte swizzled; mbarriers mark a
+//   stage full (bytes landed) and empty (all 8 consumer warps done). Rows
+//   past the range's end are zeroed in shared memory before use, so stale
+//   rows never reach a product (0 * NaN is NaN).
+// - Consumer w in {0, 1} computes the whole 64 x 32 x 576 score tile S of
+//   tiles j = w, w + 2, ... with wgmma (A = Q, B = the tile, both from
+//   shared memory), once per tile: no partial sums to exchange. It runs
+//   the online softmax on its tile from the running row maxima the other
+//   consumer published for tile j - 1, publishes its own maxima and
+//   rescale factors, and then its P (bf16) in shared memory.
+// - Each consumer owns 256 of the 512 output columns (64 x 256 f32: 128
+//   accumulator registers a thread) and runs O = O a + P V for every
+//   tile, its own P from registers as wgmma's A operand and the other's
+//   from shared memory; V is the tile's first 512 columns, read in place
+//   (MN-major). The two interleave, so one's softmax overlaps the other's
+//   products. Each keeps the denominator of its own tiles' P; the two are
+//   summed at the end. The order of every sum is fixed: no atomics.
+// - Scores are scaled by scale * log2(e) in one FFMA and exponentiated
+//   with exp2f; a warp rescales its accumulator only when a factor is not
+//   1. Only edge tiles mask per element. The accumulator is first written
+//   by a product (scale-d 0): a register written by other instructions
+//   while a product is in flight makes ptxas serialise every wgmma.
+// - 64-key tiles in 2 stages (231,976 bytes) ran 10.1 ms at the timing
+//   probe's pack against 8.2 for this shape (CUDA events, one H100): with
+//   2 stages a tile can load only once both consumers are done with the
+//   one before.
+//
+// The absorbed form does 69,632 operations a query-key pair against the
+// published 2 H (Dn + Dr + Dv) = 20,480, 3.4 times the count; expanding
+// k_nope and v tile by tile would cost each block 2 R H (Dn + Dv)
+// operations a key, more again at any block a register file holds. At
+// pack sizes it is bound by the tensor cores: a block's 64 rows take
+// 139,264 operations from each 1,152-byte latent row read from L2, about
+// 121 a byte, so 132 blocks at the card's peak would draw about 8 TB/s
+// from L2. Measured (one H100, 700 W): a 2,048-token pack at 26,000 keys
+// in 7.88 ms of device time, 489 TFLOP/s of absorbed work (22.58 ms, 171
+// TFLOP/s, on the mma.sync design it replaced).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attn_mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -104,6 +141,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDecodeHeads = 32;
 constexpr int kDecodeKeys = 32;      // the wrapper's DECODE_KEYS
 constexpr int kPrefillRows = 64;     // the wrapper's PREFILL_ROWS
+constexpr int kPrefillKeys = 32;     // the wrapper's PREFILL_KEYS
 
 template <int RG_, int CG_, int KEYS_, int STAGES_>
 struct Shape {
@@ -126,9 +164,7 @@ struct Shape {
 };
 
 using Decode = Shape<2, 4, kDecodeKeys, 3>;
-using Prefill = Shape<4, 2, 32, 3>;
 static_assert(Decode::kRows == kDecodeHeads, "one lane's heads a block");
-static_assert(Prefill::kRows == kPrefillRows, "the wrapper's rows");
 
 // A lane's latent rows through its block-table row; in decode, position
 // `last` is the new row, read from latent_new and never from the pool.
@@ -470,40 +506,327 @@ paged_mla_decode_combine(const float* __restrict__ ws_acc,
   out[1] = __floats2bfloat162_rn(acc.z * inv, acc.w * inv);
 }
 
-template <class Sh>
-__global__ void __launch_bounds__(Sh::kThreads, 1)
-paged_mla_prefill_kernel(const bf16* __restrict__ q,     // (B, Sq, H, kW)
-                         const bf16* __restrict__ pool,  // (P, page, kW)
+// The prefill's block: 64 rows (one wgmma row tile), KEYS-key tiles
+// through a ring of STAGES, 384 threads (2 consumer warpgroups, then the
+// producer's). Its shared memory, in bytes from a 1,024-aligned base: Q (9
+// column blocks of 64 rows x 128 B, as its TMA boxes land), STAGES latent
+// tiles (9 column blocks of KEYS rows x 128 B each), the bf16 P tile
+// (64-byte rows, swizzled K-major), the published row maxima and rescale
+// factors (two slots), the two warpgroups' denominators, then the
+// mbarriers, 227,912 bytes with the alignment slack.
+struct Prefill {
+  static constexpr int KEYS = kPrefillKeys, STAGES = 4;
+  static constexpr int kRows = kPrefillRows;
+  static constexpr int kThreads = 384;
+  static constexpr int kBlocks = kW / 64;      // 128-byte column blocks
+  static constexpr int kQBlock = kRows * 128;
+  static constexpr int kKBlock = KEYS * 128;
+  static constexpr int kNs = KEYS / 2;         // score registers a thread
+  static constexpr int kPRow = KEYS * 2;       // bytes of a P row
+  static constexpr int kOffTiles = kBlocks * kQBlock;
+  static constexpr int kOffP = kOffTiles + STAGES * kBlocks * kKBlock;
+  static constexpr int kOffM = kOffP + kRows * kPRow;
+  static constexpr int kOffA = kOffM + 2 * kRows * 4;
+  static constexpr int kOffL = kOffA + 2 * kRows * 4;
+  static constexpr int kOffBar = kOffL + 2 * kRows * 4;
+  static constexpr size_t kSmem = kOffBar + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(kRows == 64 && KEYS == 32, "one wgmma row tile; P rows of "
+                "64 bytes");
+  static_assert(STAGES % 2 == 0, "a warpgroup's tiles keep their stages");
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
+
+// Named barriers (0 is __syncthreads): consumer w publishes its tile's row
+// maxima on kBarM + w and its P tile on kBarP + w (its 128 threads arrive,
+// the partner's 128 sync); kBarWG + w spans warpgroup w alone; kBarEnd
+// both consumers.
+constexpr int kBarM = 1, kBarP = 3, kBarWG = 5, kBarEnd = 7;
+
+// The 16-byte chunk `c` of P row `r` (64-byte swizzle), as wgmma reads it.
+__device__ __forceinline__ int p_chunk(int r, int c) {
+  return c ^ ((r >> 1) & 3);
+}
+
+__global__ void __launch_bounds__(Prefill::kThreads, 1)
+paged_mla_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap pmap,
                          const int* __restrict__ table,  // (B, Np)
                          const int* __restrict__ kv_len,     // (B,)
                          const int* __restrict__ q_offset,   // (B,)
                          bf16* __restrict__ o,           // (B, Sq, H, kR)
-                         int Sq, int H, int Np, int page, float f) {
+                         int Sq, int H, int Np, int page, int box, float f) {
+  using Sh = Prefill;
+  constexpr int KEYS = Sh::KEYS, STAGES = Sh::STAGES, kNs = Sh::kNs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = sm;
+  unsigned char* tiles = sm + Sh::kOffTiles;
+  unsigned char* p_s = sm + Sh::kOffP;
+  float* s_max = reinterpret_cast<float*>(sm + Sh::kOffM);     // [2][64]
+  float* s_alpha = reinterpret_cast<float*>(sm + Sh::kOffA);   // [2][64]
+  float* s_l = reinterpret_cast<float*>(sm + Sh::kOffL);       // [2][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Sh::kOffBar);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_bar = empty + STAGES;
+
   const int blk = blockIdx.x, b = blockIdx.y;
-  const int row0 = blk * Sh::kRows;           // (token, head) rows
+  const int row0 = blk * Sh::kRows;            // (token, head) rows
   const int n_all = Sq * H;
   const int n_rows = min(Sh::kRows, n_all - row0);
   const int tok_last = min((row0 + Sh::kRows - 1) / H, Sq - 1);
   const int q0 = q_offset[b];
   const int hi = max(0, min(min(kv_len[b], q0 + tok_last + 1), Np * page));
-  const Rows keys{pool, table + (int64_t)b * Np, page, page_shift(page), -1,
-                  pool};
-  const int64_t qb = (int64_t)b * n_all + row0;
-  Result<Sh> res;
-  walk<Sh, true, false>(keys, q + qb * kW, n_rows, 0, hi, q0, row0, H, f,
-                        res);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int rg = warp / Sh::CG, cg = warp % Sh::CG;
+  const int n = (hi + KEYS - 1) / KEYS;        // key tiles
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);           // each consumer warp
+    }
+    sm90::mbar_init(q_bar, 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // the producer: Q once, then each tile's pages, box rows at a time
+    sm90::regs_dec<40>();
+    if (threadIdx.x != 256) return;
+    sm90::tma_prefetch_map(&qmap);
+    sm90::tma_prefetch_map(&pmap);
+    sm90::mbar_expect_tx(q_bar, Sh::kOffTiles);
+    for (int c = 0; c < Sh::kBlocks; ++c)
+      sm90::tma_load_2d(q_s + c * Sh::kQBlock, &qmap, q_bar, c * 64,
+                        b * n_all + row0);
+    const int* pages = table + (int64_t)b * Np;
+    for (int j = 0; j < n; ++j) {
+      const int st = j % STAGES, round = j / STAGES;
+      if (round > 0) sm90::mbar_wait(&empty[st], (round - 1) & 1);
+      const int t0 = j * KEYS;
+      const int segs = (min(KEYS, hi - t0) + box - 1) / box;
+      sm90::mbar_expect_tx(&full[st], segs * box * kW * 2);
+      unsigned char* tile = tiles + st * Sh::kBlocks * Sh::kKBlock;
+      for (int k = 0; k < segs; ++k) {
+        const int t = t0 + k * box;
+        const int row = __ldg(pages + t / page) * page + t % page;
+        for (int c = 0; c < Sh::kBlocks; ++c)
+          sm90::tma_load_2d(tile + c * Sh::kKBlock + k * box * 128, &pmap,
+                            &full[st], c * 64, row);
+      }
+    }
+    return;
+  }
+
+  // a consumer: warpgroup w scores tiles j = w, w + 2, ... and owns output
+  // columns [256 w, 256 w + 256)
+  sm90::regs_inc<232>();
+  const int w = warp / 4, wl = warp % 4, tid = threadIdx.x % 128;
+  const int r0 = wl * 16 + lane / 4;           // this thread's rows r0, r0 + 8
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = q0 + (row0 + r0 + 8 * i) / H;
+  const int q_first = q0 + row0 / H;           // the block's first row's
+
+  const uint64_t q_desc =
+      sm90::desc(sm90::smem_u32(q_s), 16, 1024, sm90::kSwizzle128);
+  const uint64_t p_desc =
+      sm90::desc(sm90::smem_u32(p_s), 16, 512, sm90::kSwizzle64);
+  auto tile_at = [&](int j) {
+    return tiles + (j % STAGES) * Sh::kBlocks * Sh::kKBlock;
+  };
+  auto v_desc = [&](int j) {     // this warpgroup's 256 value columns
+    return sm90::desc(sm90::smem_u32(tile_at(j) + 4 * w * Sh::kKBlock),
+                      Sh::kKBlock, 1024, sm90::kSwizzle128);
+  };
+  auto release = [&](int j) {    // this warp is done with tile j
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[j % STAGES]);
+  };
+
+  // the accumulator is first written by a product (scale_d 0), never by
+  // other instructions, so no product waits on them
+  float acc[128];
+  int live = 0;                  // acc holds a sum
+  float l[2] = {0.f, 0.f};
+  int held = -1;                 // own tile whose P.V is not yet released
+  sm90::mbar_wait(q_bar, 0);
+
+  for (int j = w; j <= n; j += 2) {
+    const bool own = j < n;
+    const int t0 = j * KEYS;
+    float s[kNs];
+    if (own) {
+      // S = Q K^T over all 576 values, one product, issued now
+      unsigned char* tile = tile_at(j);
+      sm90::mbar_wait(&full[j % STAGES], (j / STAGES) & 1);
+      if (t0 + KEYS > hi) {      // rows past the range: zeros, never stale
+        const int v = hi - t0, per = (KEYS - v) * 8;
+        for (int i = tid; i < Sh::kBlocks * per; i += 128)
+          *reinterpret_cast<uint4*>(tile + (i / per) * Sh::kKBlock +
+                                    v * 128 + (i % per) * 16) =
+              make_uint4(0, 0, 0, 0);
+        sm90::fence_proxy_async();
+        sm90::bar_sync(kBarWG + w, 128);
+      }
+      const uint64_t k_desc =
+          sm90::desc(sm90::smem_u32(tile), 16, 1024, sm90::kSwizzle128);
+      sm90::fence_regs(s);
+      sm90::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kW / 16; ++kk) {
+        const uint32_t qo = (kk / 4) * Sh::kQBlock + (kk % 4) * 32;
+        const uint32_t ko = (kk / 4) * Sh::kKBlock + (kk % 4) * 32;
+        sm90::mma_m64n32k16_ss(s, sm90::desc_add(q_desc, qo),
+                               sm90::desc_add(k_desc, ko), kk > 0);
+      }
+      sm90::mma_commit();
+    }
+    // the partner's tile j - 1: its row maxima and rescale factors
+    float m_prev[2] = {-INFINITY, -INFINITY}, a_prev[2] = {1.f, 1.f};
+    if (j >= 1) {
+      sm90::bar_sync(kBarM + 1 - w, 256);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        m_prev[i] = s_max[((j - 1) & 1) * 64 + r0 + 8 * i];
+        a_prev[i] = s_alpha[((j - 1) & 1) * 64 + r0 + 8 * i];
+      }
+    }
+    sm90::mma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(acc);
+    if (held >= 0) release(held);
+    held = -1;
+
+    float alpha[2] = {1.f, 1.f};
+    uint32_t pf[KEYS / 16][4];
+    if (own) {
+      // the mask (edge tiles only)
+      const bool whole = t0 + KEYS <= hi && t0 + KEYS - 1 <= q_first;
+      if (!whole) {
+#pragma unroll
+        for (int i = 0; i < kNs; ++i) {
+          const int t = t0 + (i / 4) * 8 + 2 * (lane % 4) + (i & 1);
+          if (!(t < hi && t <= qpos[(i / 2) & 1])) s[i] = -INFINITY;
+        }
+      }
+      // online softmax from the partner's maxima: publish this tile's
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < kNs; i += 4)
+          mx = fmaxf(mx, fmaxf(s[i + 2 * r], s[i + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m_prev[r], mx);
+        base[r] = m_new == -INFINITY ? 0.f : m_new * f;  // no key seen yet
+        alpha[r] = exp2f(fmaf(m_prev[r], f, -base[r]));
+        if (lane % 4 == 0) {
+          s_max[(j & 1) * 64 + r0 + 8 * r] = m_new;
+          s_alpha[(j & 1) * 64 + r0 + 8 * r] = alpha[r];
+        }
+        l[r] = l[r] * a_prev[r] * alpha[r];
+      }
+      sm90::bar_arrive(kBarM + w, 256);
+#pragma unroll
+      for (int i = 0; i < kNs; ++i) {
+        const float pe = exp2f(fmaf(s[i], f, -base[(i / 2) & 1]));
+        l[(i / 2) & 1] += pe;
+        s[i] = pe;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          pf[kk][h] = pack_bf16(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1]);
+    } else {
+      l[0] *= a_prev[0];
+      l[1] *= a_prev[1];
+    }
+
+    if (j >= 1) {
+      // O = O a_{j-1} + P_{j-1} V_{j-1}, the partner's P from shared memory
+      sm90::bar_sync(kBarP + 1 - w, 256);
+      if (live && !__all_sync(kFull, a_prev[0] == 1.f && a_prev[1] == 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] *= a_prev[(i / 2) & 1];
+      }
+      const uint64_t vd = v_desc(j - 1);
+      sm90::fence_regs(acc);
+      sm90::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+        sm90::mma_m64n256k16_ss_t(acc, sm90::desc_add(p_desc, kk * 32),
+                                  sm90::desc_add(vd, kk * 2048),
+                                  kk > 0 || live);
+      sm90::mma_commit();
+      live = 1;
+      sm90::mma_wait<0>();
+      sm90::fence_regs(acc);
+      release(j - 1);
+    }
+    if (own) {
+      // publish P_j (bf16) once this warpgroup is done with P_{j-1}
+      sm90::bar_sync(kBarWG + w, 128);
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int r = r0 + 8 * (h & 1), c = 2 * kk + h / 2;
+          *reinterpret_cast<uint32_t*>(p_s + r * Sh::kPRow +
+                                       p_chunk(r, c) * 16 +
+                                       (lane % 4) * 4) = pf[kk][h];
+        }
+      sm90::fence_proxy_async();
+      sm90::bar_arrive(kBarP + w, 256);
+      // O = O a_j + P_j V_j, P from registers
+      if (live && !__all_sync(kFull, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i / 2) & 1];
+      }
+      const uint64_t vd = v_desc(j);
+      sm90::fence_regs(acc);
+      sm90::fence_regs(reinterpret_cast<uint32_t(&)[KEYS / 4]>(pf));
+      sm90::mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KEYS / 16; ++kk)
+        sm90::mma_m64n256k16_rs_t(acc, pf[kk],
+                                  sm90::desc_add(vd, kk * 2048),
+                                  kk > 0 || live);
+      sm90::mma_commit();
+      live = 1;
+      held = j;
+    }
+  }
+  sm90::mma_wait<0>();
+  sm90::fence_regs(acc);
+  if (!live) {                   // no key: the rows are zero
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  }
+
+  // the denominators: a quad's partial sums, then both warpgroups'
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = rg * 16 + lane / 4 + 8 * r;
-    if (row >= n_rows) continue;
-    const float inv = 1.f / fmaxf(res.l[r], 1e-30f);
-    bf16* op = o + (qb + row) * kR + cg * Sh::kCols + 2 * (lane % 4);
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    if (lane % 4 == 0) s_l[w * 64 + r0 + 8 * r] = l[r];
+  }
+  sm90::bar_sync(kBarEnd, 256);
+  const int64_t qb = (int64_t)b * n_all + row0;
 #pragma unroll
-    for (int n = 0; n < Sh::kNo; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(op + n * 8) = __floats2bfloat162_rn(
-          res.acc[n][2 * r] * inv, res.acc[n][2 * r + 1] * inv);
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= n_rows) continue;
+    const float inv = 1.f / fmaxf(s_l[row] + s_l[64 + row], 1e-30f);
+    bf16* op = o + (qb + row) * kR + 256 * w + 2 * (lane % 4);
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(op + c * 8) = __floats2bfloat162_rn(
+          acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
   }
 }
 
@@ -513,17 +836,65 @@ int allow_smem(Kernel k, size_t bytes) {
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime, so the
+// library links nothing beyond the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of `rows` latent rows (kW bf16 each) from `base`, in boxes of 64
+// columns by `box` rows, 128-byte swizzled as wgmma reads them.
+bool latent_map(CUtensorMap* map, const void* base, uint64_t rows,
+                uint32_t box) {
+  const EncodeTiled encode = encoder();
+  const cuuint64_t dims[2] = {kW, rows};
+  const cuuint64_t strides[1] = {kW * sizeof(bf16)};
+  const cuuint32_t boxes[2] = {64, box};
+  const cuuint32_t steps[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, boxes, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
 // The widths and block shapes the kernels are built for (the wrapper
 // checks its calls against them): rank, rope width, decode heads, decode
-// keys a tile, prefill rows a block.
+// keys a tile, prefill rows a block, prefill keys a tile.
 int paged_mla_shape(int i) {
-  const int v[5] = {kR, kDr, kDecodeHeads, kDecodeKeys, kPrefillRows};
-  return i >= 0 && i < 5 ? v[i] : -1;
+  const int v[6] = {kR, kDr, kDecodeHeads, kDecodeKeys, kPrefillRows,
+                    kPrefillKeys};
+  return i >= 0 && i < 6 ? v[i] : -1;
 }
+
+// The prefill kernel's dynamic shared memory a block, in bytes.
+int paged_mla_prefill_smem() { return (int)Prefill::kSmem; }
 
 // Decode: q (B, 32, 576), pool (P, page, 576), table (B, maxp), lengths,
 // latent_new (B, 576), write_pages/write_offsets (B,), workspaces ws_acc
@@ -555,22 +926,31 @@ int paged_mla_decode(const void* q, void* pool, const void* table,
 }
 
 // Prefill: q (B, Sq, H, 576), pool (P, page, 576), table (B, Np), kv_len
-// and q_offset (B,), o (B, Sq, H, 512). Returns the CUDA error.
+// and q_offset (B,), o (B, Sq, H, 512). The page size is a multiple of 8
+// that divides the tile's keys or is divided by them (a TMA box holds one
+// page's rows of a tile). Returns the CUDA error of the launch,
+// cudaErrorInvalidValue for a page size outside that rule, or
+// cudaErrorNotSupported when the tensor maps cannot be made.
 int paged_mla_prefill(const void* q, const void* pool, const void* table,
                       const void* kv_len, const void* q_offset, void* o,
-                      int B, int Sq, int H, int Np, int page, float scale,
-                      void* stream) {
-  static const int attr =
-      allow_smem(paged_mla_prefill_kernel<Prefill>, Prefill::kSmem);
+                      int B, int Sq, int H, int P, int Np, int page,
+                      float scale, void* stream) {
+  using Sh = Prefill;
+  if (page % 8 != 0 || (Sh::KEYS % page != 0 && page % Sh::KEYS != 0))
+    return (int)cudaErrorInvalidValue;
+  static const int attr = allow_smem(paged_mla_prefill_kernel, Sh::kSmem);
   if (attr != 0) return attr;
-  const dim3 grid((Sq * H + kPrefillRows - 1) / kPrefillRows, B);
-  paged_mla_prefill_kernel<Prefill>
-      <<<grid, Prefill::kThreads, Prefill::kSmem,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
-          static_cast<const int*>(table), static_cast<const int*>(kv_len),
-          static_cast<const int*>(q_offset), static_cast<bf16*>(o), Sq, H,
-          Np, page, scale * kLog2e);
+  const int box = page < Sh::KEYS ? page : Sh::KEYS;
+  CUtensorMap qmap, pmap;
+  if (!latent_map(&qmap, q, (uint64_t)B * Sq * H, Sh::kRows) ||
+      !latent_map(&pmap, pool, (uint64_t)P * page, box))
+    return (int)cudaErrorNotSupported;
+  const dim3 grid((Sq * H + Sh::kRows - 1) / Sh::kRows, B);
+  paged_mla_prefill_kernel<<<grid, Sh::kThreads, Sh::kSmem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      qmap, pmap, static_cast<const int*>(table),
+      static_cast<const int*>(kv_len), static_cast<const int*>(q_offset),
+      static_cast<bf16*>(o), Sq, H, Np, page, box, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 

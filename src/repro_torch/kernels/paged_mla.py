@@ -11,12 +11,8 @@ Both run the absorbed form. A query is ``q~ = [q_nope W_uk^T | q_pe]``
 (``R + Dr`` wide, made by the caller); every head scores each latent row
 over all ``R + Dr`` values and sums the rows' first ``R`` values (the
 caller lifts the sum by ``W_uv``). Each latent row is read from its page
-in place through the block table (any page size). Products run on the
-tensor cores (``mma.sync``, bf16 operands, f32 accumulation) in
-``attn_mma.cuh``'s design, widened to MLA's rows: a block's warps split
-the 512 output columns, and the warps of one 16-row group each compute a
-part of the 576-wide score product and sum the parts through shared
-memory. Design notes in the source.
+in place through the block table. Products run on the tensor cores (bf16
+operands, f32 accumulation). Design notes in the source.
 
 - **Decode** (``paged_mla_decode``): one lane's 32 heads against a tile of
   latent rows, so the heads share each row read: per key and layer the
@@ -29,17 +25,32 @@ memory. Design notes in the source.
   so a call can be captured. The new token's row is written into its page
   inside the call by the lane's first split; every split takes that row
   from the input rather than the pool, so no block reads a slot another
-  is writing.
+  is writing. It runs ``attn_mma.cuh``'s ``mma.sync`` design widened to
+  MLA's rows (any page size): a block's warps split the 512 output
+  columns, and the warps of one 16-row group each compute a part of the
+  576-wide score product and sum the parts through shared memory.
 - **Prefill** (``paged_mla_prefill``): the rows of a block are (token,
   head) pairs, token-major, 64 of them, so the heads of the same tokens
   share each tile of latent rows; causal by absolute position
   (``kv_pos <= q_offset + i``, ``kv_pos < kv_len``), stopping at the last
-  key its rows can see. The absorbed form does ``2 H (2R + Dr)``
-  operations a query-key pair (69,632 at kanana's widths) against the
-  published ``2 H (Dn + Dr + Dv)`` (20,480), 3.4 times the count:
-  expanding ``k_nope`` and ``v`` tile by tile would cost each block
-  ``2 R H (Dn + Dv)`` operations a key, more again at any block a register
-  file holds. At pack sizes it is bound by the tensor cores.
+  key its rows can see. It runs on Hopper's warpgroup path
+  (``csrc/sm90.cuh``): a producer warp loads Q once and each 32-key tile
+  by TMA, a page's rows a box, into a four-stage ring; two consumer
+  warpgroups take turns computing a tile's whole 64 x 32 x 576 score
+  product with ``wgmma``, each runs the online softmax on its tile from
+  the maxima the other published for the tile before, and each applies
+  every tile's P to its own 256 of the 512 output columns (its own P from
+  registers, the other's from shared memory). The absorbed form does
+  ``2 H (2R + Dr)`` operations a query-key pair (69,632 at kanana's
+  widths) against the published ``2 H (Dn + Dr + Dv)`` (20,480), 3.4
+  times the count: expanding ``k_nope`` and ``v`` tile by tile would cost
+  each block ``2 R H (Dn + Dv)`` operations a key, more again at any block
+  a register file holds. At pack sizes it is bound by the tensor cores;
+  a tile feeds its 64 rows about 121 operations a byte read from L2. On
+  one H100 a 2,048-token pack at 26,000 keys takes 7.88 ms of device
+  time, 489 TFLOP/s of absorbed work. The page size must be a multiple of 8
+  that divides ``PREFILL_KEYS`` or is a multiple of it (checked): a TMA
+  box holds one page's rows of a tile.
 
 On a CPU tensor the wrappers run the plain versions
 (``ref.paged_mla_decode_ref``, ``ref.paged_mla_prefill_ref``); on a CUDA
@@ -61,7 +72,8 @@ from repro_torch.kernels import _build, _grad
 from repro_torch.kernels.ref import paged_mla_decode_ref, paged_mla_prefill_ref
 
 # the widths and block shapes of csrc/paged_mla.cu (paged_mla_shape)
-RANK, ROPE, DECODE_HEADS, DECODE_KEYS, PREFILL_ROWS = 512, 64, 32, 32, 64
+RANK, ROPE, DECODE_HEADS, DECODE_KEYS, PREFILL_ROWS, PREFILL_KEYS = (
+    512, 64, 32, 32, 64, 32)
 TARGET_BLOCKS = 264        # decode blocks a call aims for: two an SM
 MIN_KEYS_PER_SPLIT = 256
 _vp, _int = ctypes.c_void_p, ctypes.c_int
@@ -72,17 +84,20 @@ def _lib() -> ctypes.CDLL:
     if lib.paged_mla_decode.argtypes is None:
         lib.paged_mla_shape.argtypes = [_int]
         lib.paged_mla_shape.restype = _int
-        got = tuple(lib.paged_mla_shape(i) for i in range(5))
-        want = (RANK, ROPE, DECODE_HEADS, DECODE_KEYS, PREFILL_ROWS)
+        got = tuple(lib.paged_mla_shape(i) for i in range(6))
+        want = (RANK, ROPE, DECODE_HEADS, DECODE_KEYS, PREFILL_ROWS,
+                PREFILL_KEYS)
         if got != want:
             raise RuntimeError(f"paged_mla.cu is built for {got}, the "
                                f"wrapper expects {want}")
         lib.paged_mla_decode.argtypes = [_vp] * 10 + [_int] * 5 + [
             ctypes.c_float, _vp]
         lib.paged_mla_decode.restype = _int
-        lib.paged_mla_prefill.argtypes = [_vp] * 6 + [_int] * 5 + [
+        lib.paged_mla_prefill.argtypes = [_vp] * 6 + [_int] * 6 + [
             ctypes.c_float, _vp]
         lib.paged_mla_prefill.restype = _int
+        lib.paged_mla_prefill_smem.argtypes = []
+        lib.paged_mla_prefill_smem.restype = _int
     return lib
 
 
@@ -106,7 +121,7 @@ def _check(name, q, latent_pages, block_table, ints, rank: int):
             raise TypeError(f"{name}: tables, lengths and slots must be "
                             "int32")
     for t in (q, latent_pages):
-        if t.data_ptr() % 16:       # the 16-byte cp.async rows
+        if t.data_ptr() % 16:       # cp.async's 16-byte rows; TMA's base
             raise ValueError(f"{name}: q and the pool must start on a "
                              "16-byte boundary")
     return H
@@ -188,6 +203,11 @@ def paged_mla_prefill(q, latent_pages, block_table, kv_len, q_offset, *,
     H = _check("paged_mla_prefill", q, latent_pages, block_table,
                (kv_len, q_offset), rank)
     B, Sq = q.shape[:2]
+    n_pages, page = latent_pages.shape[:2]
+    if page % 8 or (PREFILL_KEYS % page and page % PREFILL_KEYS):
+        raise ValueError(f"paged_mla_prefill: page size {page}; the kernel "
+                         f"takes a multiple of 8 that divides {PREFILL_KEYS} "
+                         f"or is a multiple of it")
     o = torch.empty((B, Sq, H, rank), dtype=q.dtype, device=q.device)
     if B == 0 or Sq == 0:
         return o
@@ -197,7 +217,7 @@ def paged_mla_prefill(q, latent_pages, block_table, kv_len, q_offset, *,
         rc = lib.paged_mla_prefill(
             q.data_ptr(), latent_pages.data_ptr(), block_table.data_ptr(),
             kv_len.data_ptr(), q_offset.data_ptr(), o.data_ptr(), B, Sq, H,
-            block_table.shape[1], latent_pages.shape[1], scale, stream)
+            n_pages, block_table.shape[1], page, scale, stream)
     if rc != 0:
         raise RuntimeError(f"paged_mla_prefill launch failed: CUDA error "
                            f"{rc}")

@@ -18,14 +18,18 @@ existed), bit for bit: the shared MoE and paged code kept its arithmetic.
 On the card (``card`` tests; ``python -m pytest tests/test_torch_mla.py
 -m card`` there): the CUDA kernels against their plain versions at the
 published widths (32 heads, 576/512, page 32) over lengths 1 to 32,768,
-every output row compared, the fused latent write bit for bit, and a
-captured stage replayed against eager. Tolerances: float32 paths agree to
-1e-4 of the logits' largest magnitude (the same sums in another order);
-the bf16 kernels element by element to KERNEL_ATOL + KERNEL_RTOL x the
-value, never above the repo's bf16 kernel tolerance of 3e-2 (the reasons
-beside the constants), and each card test shows that planted faults
-(a block table shifted by one page, a decode split left out) depart from
-the plain version by more than that limit.
+every output row compared, the fused latent write bit for bit, the
+prefill's edges (1-token packs, partial blocks, tile edges, the cell's
+2,048-token pack, the page sizes it takes and refuses) and its
+repeatability, and a captured stage replayed
+against eager. On the CPU, the source's kernel names and shape table
+against the wrapper and the benchmark's metric. Tolerances: float32 paths
+agree to 1e-4 of the logits' largest magnitude (the same sums in another
+order); the bf16 kernels element by element to KERNEL_ATOL + KERNEL_RTOL
+x the value, never above the repo's bf16 kernel tolerance of 3e-2 (the
+reasons beside the constants), and each card test shows that planted
+faults (a block table shifted by one page, a decode split left out)
+depart from the plain version by more than that limit.
 """
 import json
 import math
@@ -472,8 +476,8 @@ H, R, DR = 32, 512, 64        # kanana's heads, latent and rope widths
 CARD_PAGE = 32
 
 
-def _card_pool(gen, dev, n_pages):
-    return (torch.randn((n_pages + 1, CARD_PAGE, R + DR), generator=gen,
+def _card_pool(gen, dev, n_pages, page=CARD_PAGE):
+    return (torch.randn((n_pages + 1, page, R + DR), generator=gen,
                         device=dev) * 0.5).to(torch.bfloat16)
 
 
@@ -502,13 +506,13 @@ def _excess(got, want):
     return ((g - w).abs() / limit).max().item()
 
 
-def _tables(gen, dev, lengths, n_pages, maxp):
+def _tables(gen, dev, lengths, n_pages, maxp, page=CARD_PAGE):
     perm = torch.randperm(n_pages, generator=gen, device=dev)
     table = torch.full((len(lengths), maxp), n_pages, dtype=torch.int32,
                        device=dev)
     at = 0
     for i, n in enumerate(lengths):
-        k = -(-n // CARD_PAGE)
+        k = -(-n // page)
         table[i, :k] = perm[at:at + k]
         at += k
     return table
@@ -562,14 +566,35 @@ def test_decode_kernel_against_its_plain_version(card):
         assert shifted > 1.0
 
 
+def _prefill_plain(q, pool, table, kvl, q0):
+    """The plain prefill, 128 tokens at a time (a 2,048-token pack's scores
+    at 28,048 keys would take 7.3 GB at once)."""
+    return torch.cat([ref.paged_mla_prefill_ref(
+        q[:, i:i + 128], pool, table, kvl, q0 + i, scale=0.072, rank=R)
+        for i in range(0, q.shape[1], 128)], 1)
+
+
 @pytest.mark.card
 def test_prefill_kernel_against_its_plain_version(card):
     """Packs at 0, mid-page and at the end of a 32,768-token context,
-    ragged chunk lengths, two sequences in one call; every row compared.
-    A shifted table departs by more than the limit."""
+    ragged chunk lengths, two sequences in one call; 1-token packs; Sq x H
+    ending partway through a 64-row block; key ranges ending one before,
+    at and one after a tile edge; the cell's pack (2,048 tokens at
+    26,000). Every row compared; a second call on the same inputs gives
+    the same bits. A shifted table departs by more than the limit. Rows
+    that see under about ten keys can exceed the limit in this kernel and
+    the mma.sync kernel before it alike, at the same element (bf16 P moves
+    a key's weight by up to 2^-9 of its value, not of the output's: 1.03
+    times at a row of 9 keys, 1.33 on another draw of a pack at 0, both
+    kernels): the first four packs, whose draws pass, keep their few-key
+    rows; the cases after them see one key (a weight of exactly 1) or 71
+    and more."""
     gen = torch.Generator(device=card).manual_seed(19)
+    edge = 32 * paged_mla.PREFILL_KEYS
     for starts, Sq in (([0], 64), ([37, 500], 100), ([32640], 128),
-                       ([3, 1000], 33)):
+                       ([3, 1000], 33), ([5000], 1), ([0, 70], 1),
+                       ([100, 700], 3), ([edge - 65], 64), ([edge - 64], 64),
+                       ([edge - 63], 64), ([26000], 2048)):
         kv = [s + Sq for s in starts]
         maxp = -(-max(kv) // CARD_PAGE) + 1
         pool = _card_pool(gen, card, 1100)
@@ -578,20 +603,53 @@ def test_prefill_kernel_against_its_plain_version(card):
                         device=card).to(torch.bfloat16)
         kvl = torch.tensor(kv, dtype=torch.int32, device=card)
         q0 = torch.tensor(starts, dtype=torch.int32, device=card)
-        want = ref.paged_mla_prefill_ref(q, pool, table, kvl, q0,
-                                         scale=0.072, rank=R)
+        want = _prefill_plain(q, pool, table, kvl, q0)
         got = paged_mla.paged_mla_prefill(q, pool, table, kvl, q0,
                                           scale=0.072, rank=R)
+        again = paged_mla.paged_mla_prefill(q, pool, table, kvl, q0,
+                                            scale=0.072, rank=R)
         torch.cuda.synchronize()
         err = _excess(got, want)
-        shifted = _excess(ref.paged_mla_prefill_ref(
-            q, pool, _shifted(table, 1100), kvl, q0, scale=0.072, rank=R),
-            want)
+        shifted = _excess(_prefill_plain(q, pool, _shifted(table, 1100), kvl,
+                                         q0), want)
         print(f"prefill {starts} + {Sq}: over the limit x{err:.3f} (max abs "
               f"{(got.float() - want.float()).abs().max().item():.3e}); "
               f"shifted table x{shifted:.1f}")
         assert err <= 1.0
+        assert torch.equal(got, again)
         assert shifted > 1.0
+
+
+@pytest.mark.card
+def test_prefill_kernel_takes_the_page_sizes_its_boxes_fit(card):
+    """A TMA box holds one page's rows of a key tile, so the prefill takes
+    a page size that is a multiple of 8 and divides PREFILL_KEYS or is a
+    multiple of it: pages of 8, 16, 64 and 128 agree with the plain
+    version within the limit (two sequences, ragged, tiles spanning pages
+    or within one); 12, 24 and 48 are refused before any launch."""
+    gen = torch.Generator(device=card).manual_seed(23)
+    starts, Sq = [37, 500], 100
+    kv = [s + Sq for s in starts]
+    for page in (8, 16, 64, 128):
+        n_pages = 35200 // page
+        maxp = -(-max(kv) // page) + 1
+        pool = _card_pool(gen, card, n_pages, page)
+        table = _tables(gen, card, kv, n_pages, maxp, page)
+        q = torch.randn((len(starts), Sq, H, R + DR), generator=gen,
+                        device=card).to(torch.bfloat16)
+        kvl = torch.tensor(kv, dtype=torch.int32, device=card)
+        q0 = torch.tensor(starts, dtype=torch.int32, device=card)
+        got = paged_mla.paged_mla_prefill(q, pool, table, kvl, q0,
+                                          scale=0.072, rank=R)
+        err = _excess(got, _prefill_plain(q, pool, table, kvl, q0))
+        print(f"prefill at page {page}: over the limit x{err:.3f}")
+        assert err <= 1.0
+    for page in (12, 24, 48):
+        pool = torch.zeros((4, page, R + DR), dtype=torch.bfloat16,
+                           device=card)
+        with pytest.raises(ValueError, match="page size"):
+            paged_mla.paged_mla_prefill(q, pool, table, kvl, q0, scale=0.072,
+                                        rank=R)
 
 
 def _card_config():
@@ -661,6 +719,34 @@ def test_a_captured_stage_replays_equal_to_eager(card):
         lane.resident_len += 1
     assert impl.graphs.counts[tr.REPLAYED] >= 2
     b.close()
+
+
+def test_the_prefill_launches_carry_the_metric_s_name_and_shapes_agree():
+    """``mla_prefill_roofline`` finds the prefill's device time by the
+    substring ``paged_mla_prefill_kernel``: every kernel that
+    ``paged_mla_prefill`` launches carries it. The wrapper's widths and
+    block shapes equal ``paged_mla_shape``'s table in the source."""
+    import re
+    src_path = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                            "paged_mla.cu")
+    with open(src_path) as f:
+        src = f.read()
+    kernels = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                             r"\([^)]*\)\s+)?(\w+)\s*\(", src))
+    body = src[src.index("int paged_mla_prefill("):]
+    body = body[:body.index("\n}\n")]
+    launched = re.findall(r"(\w+)\s*(?:<[^<>]*>)?\s*<<<", body)
+    assert launched and set(launched) <= kernels
+    assert all("paged_mla_prefill_kernel" in k for k in launched)
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    table = re.search(r"int paged_mla_shape\(int i\) \{\s*const int "
+                      r"v\[(\d+)\] = \{([^}]*)\}", src)
+    names = [n.strip() for n in table.group(2).split(",")]
+    assert int(table.group(1)) == len(names)
+    assert [consts[n] for n in names] == [
+        paged_mla.RANK, paged_mla.ROPE, paged_mla.DECODE_HEADS,
+        paged_mla.DECODE_KEYS, paged_mla.PREFILL_ROWS, paged_mla.PREFILL_KEYS]
 
 
 def test_the_card_tests_name_the_published_widths():
